@@ -1,0 +1,448 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which ends the run with a non-zero exit if it fails:
+
+1. build the three CUDA kernels from ``robustsq_whisper_torch/csrc`` (one
+   ``nvcc`` per source, all started together) and print the build time;
+2. hold each kernel against its plain PyTorch version at the Whisper-medium
+   main-path shapes (batch 4), print the errors, the kernel's median time,
+   the plain version's, a library call's where one computes the same
+   function, and the least time the card could take (bound);
+3. small-input agreement: a small model greedy-decodes the same input with
+   the kernels (f32, on the card) and with the plain versions (on the CPU);
+   the tokens must be identical;
+4. the main path at full Whisper-medium width and depth (bf16, seeded random
+   weights, the bench lane's settings): ``TranscriptionEngine.transcribe``
+   on 4 synthetic (30 s speech, 10 s enrollment) pairs, 32 new tokens at
+   most, once with ``prefill_quantized`` off and once on. Every kernel's
+   launch count is set to 0 just before each run and must be > 0 after it.
+   A second, phase-timed pass prints frontend, encode, cross-KV + prefill
+   and token-loop times.
+
+The next-to-last lines are the JSON kernel record and the card's name and
+power limit (``nvidia-smi``); the last line is the JSON ok record. Needs one
+CUDA device; without one it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 SIMT
+TPU_SRC = "robustsq_whisper_tpu/ops"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def gpu_info() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def time_ms(torch, fn, reps: int = 20) -> float:
+    """Median device time of one call of ``fn``: the call is captured once
+    in a CUDA graph, so host launch overhead stays out of the time; each of
+    5 samples replays it ``reps`` times between two CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    samples = []
+    for _ in range(5):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        for _ in range(reps):
+            graph.replay()
+        e.record()
+        torch.cuda.synchronize()
+        samples.append(s.elapsed_time(e) / reps)
+    del graph
+    return statistics.median(samples)
+
+
+def device_busy(torch, fn, trace_path: str):
+    """Run ``fn`` once under torch.profiler; returns (wall ms, summed device
+    kernel/memcpy/memset ms, top kernels by device ms) read from the
+    exported chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    by_name = {}
+    busy = 0.0
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            busy += e["dur"] / 1e3
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return wall, busy, top
+
+
+def bound(bytes_moved: float, ops: float, kind: str):
+    t_bytes = bytes_moved / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_kernels(torch, dev, batch: int, max_new: int):
+    """Phase 2: each kernel against its plain version at medium shapes."""
+    from robustsq_whisper_torch.ops import decode_attention as xa
+    from robustsq_whisper_torch.ops import flash_attention as fa
+    from robustsq_whisper_torch.ops import self_attention as sa
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    heads, hd, layers, n_state = 16, 64, 24, 1024
+    t_enc = 1500 + 16  # speech frames + speaker prompt
+    rows = []
+
+    # 1. encoder self-attention, transposed layout, bf16
+    bh = batch * heads
+    q, k, v = (
+        torch.randn(bh, hd, t_enc, generator=g, device=dev).bfloat16()
+        for _ in range(3)
+    )
+    got = fa.flash_attention_tmaj(q, k, v)
+    ref = fa.flash_attention_tmaj_plain(q, k, v)
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = 2e-2  # bf16 output rounding (2^-8 relative) on O(1) values
+    rm = lambda z: z.view(batch, heads, hd, t_enc).transpose(-1, -2).contiguous()
+    qr, kr, vr = rm(q), rm(k), rm(v)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b_ms, b_by = bound(4 * bh * hd * t_enc * 2, 4 * bh * t_enc * t_enc * hd, "bf16")
+    rows.append(dict(
+        name="flash_attention_tmaj", route="cuda",
+        source="robustsq_whisper_torch/csrc/flash_attention_tmaj.cu",
+        replaces=f"{TPU_SRC}/flash_attention.py:438",
+        max_abs_err=err, tol=tol,
+        ms=time_ms(torch, lambda: fa.flash_attention_tmaj(q, k, v)),
+        plain_ms=time_ms(torch, lambda: fa.flash_attention_tmaj_plain(q, k, v), 5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: sdpa(qr, kr, vr)),
+    ))
+
+    # 2. decode cross attention, packed int4, stacked layers
+    t_pad = 1536
+    kt, vt = (
+        torch.randint(-128, 128, (layers, batch, heads, hd // 2, t_pad),
+                      generator=g, device=dev, dtype=torch.int8)
+        for _ in range(2)
+    )
+    qx = torch.randn(batch, heads, hd, generator=g, device=dev)
+    k_s = torch.full((batch, heads, hd), 0.02, device=dev)  # scores O(1)
+    kv_len = torch.tensor(t_enc, dtype=torch.int32, device=dev)
+    li = torch.tensor(7, dtype=torch.int32, device=dev)
+    call = lambda: xa.decode_cross_attention(
+        qx, kt, vt, k_s, kv_len=kv_len, layer_idx=li, packed_int4=True
+    )
+    qs = qx * hd**-0.5 * k_s
+    launch = lambda: xa._launch(qs, kt, vt, kv_len, li, True)  # kernel alone
+    plain = lambda: xa.decode_cross_attention_plain(qs, kt, vt, kv_len, 7, True)
+    err = (call() - plain()).abs().max().item()
+    b_ms, b_by = bound(
+        2 * batch * heads * (hd // 2) * t_enc + 2 * batch * heads * hd * 4,
+        4 * batch * heads * hd * t_enc, "f32",
+    )
+    rows.append(dict(
+        name="decode_cross_attention", route="cuda",
+        source="robustsq_whisper_torch/csrc/decode_cross_attention.cu",
+        replaces=f"{TPU_SRC}/decode_attention.py:79",
+        max_abs_err=err, tol=1e-4,  # f32 math, __expf vs torch.exp
+        ms=time_ms(torch, launch, 50), plain_ms=time_ms(torch, plain, 10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+
+    # 3. decode self attention, dense flat cache, bf16, the last position
+    t_pad = -(-(17 + 4 + max_new) // 8) * 8
+    pos_i = 17 + 4 + max_new - 1
+    qd, kn, vn = (
+        torch.randn(batch, n_state, generator=g, device=dev).bfloat16()
+        for _ in range(3)
+    )
+    kc, vc = (
+        torch.randn(layers, batch, t_pad, n_state, generator=g, device=dev).bfloat16()
+        for _ in range(2)
+    )
+    pos = torch.tensor(pos_i, dtype=torch.int32, device=dev)
+    call = lambda: sa.decode_self_attention(qd, kn, vn, (kc, vc), pos, li, heads=heads)
+    plain = lambda: sa.decode_self_attention_plain(
+        qd, kn, vn, (kc, vc), pos_i, 7, heads
+    )
+    err = (call().float() - plain().float()).abs().max().item()
+    b_ms, b_by = bound(
+        2 * batch * pos_i * n_state * 2 + 4 * batch * n_state * 2,
+        4 * batch * n_state * (pos_i + 1), "bf16",
+    )
+    rows.append(dict(
+        name="decode_self_attention", route="cuda",
+        source="robustsq_whisper_torch/csrc/decode_self_attention.cu",
+        replaces=f"{TPU_SRC}/self_attention.py:103",
+        max_abs_err=err, tol=2e-2,  # bf16 output rounding
+        ms=time_ms(torch, call, 50), plain_ms=time_ms(torch, plain, 10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+    for r in rows:
+        log(
+            f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
+            f"(tol {r['tol']}) ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+            f"bound_ms {r['bound_ms']:.5f} ({r['bound_by']}) "
+            f"library_ms {r['library_ms']}"
+        )
+        if not r["max_abs_err"] <= r["tol"]:
+            raise AssertionError(f"{r['name']} disagrees with its plain version")
+    return rows
+
+
+def check_small_agreement(torch, dev) -> None:
+    """Phase 3: kernels (card, f32) and plain versions (CPU) decode a small
+    model's input to the same tokens."""
+    from robustsq_whisper_torch.decode.search import DecodeConfig, build_greedy_decoder
+    from robustsq_whisper_torch.init import init_params
+    from robustsq_whisper_torch.models import (
+        QFormerTSEncoder, TSDecoder, TSEncoderConfig, WhisperDims,
+    )
+
+    dims = WhisperDims(
+        n_mels=80, n_vocab=120, n_audio_ctx=256, n_audio_state=128,
+        n_audio_head=2, n_audio_layer=2, n_text_ctx=64, n_text_state=128,
+        n_text_head=2, n_text_layer=2,
+    )
+    ts = TSEncoderConfig(
+        num_query_tokens=4, num_hidden_layers=1, qformer_hidden_size=64,
+        qformer_heads=2, qformer_intermediate_size=128,
+        use_flash_attention=True, flash_tmaj=True, gelu_approx=True,
+    )
+    enc = init_params(QFormerTSEncoder(dims, ts), 3).eval()
+    dec = init_params(TSDecoder(dims, startofprev_token=3, cross_kv_bits=4), 4)
+    rng = np.random.default_rng(5)
+    mel = torch.from_numpy(rng.standard_normal((2, 80, 512)).astype(np.float32))
+    emel = torch.from_numpy(rng.standard_normal((2, 80, 120)).astype(np.float32))
+    lens, elens = torch.tensor([512, 400]), torch.tensor([120, 90])
+    cfg = DecodeConfig(
+        max_new_tokens=12, eot=2, init_tokens=(1, 4), quantize_cross_kv=True
+    )
+    out = {}
+    for where in ("cpu", dev):
+        e = copy.deepcopy(enc).to(where)
+        with torch.inference_mode():
+            mem, _, prompt, _ = e(
+                mel.to(where), lens.to(where), emel.to(where), elens.to(where)
+            )
+        run = build_greedy_decoder(copy.deepcopy(dec), cfg, device=where)
+        tokens, scores = run(mem, prompt)
+        out[str(where)] = (mem.cpu(), tokens.cpu(), scores.cpu())
+    (m_cpu, t_cpu, s_cpu), (m_gpu, t_gpu, s_gpu) = out["cpu"], out[str(dev)]
+    err = (m_cpu - m_gpu).abs().max().item()
+    s_err = (s_cpu - s_gpu).abs().max().item()
+    log(f"small agreement: encoder max_abs_err {err:.3e}, score max_abs_err "
+        f"{s_err:.3e} (tol 1e-3 each, f32); tokens card {t_gpu.tolist()} "
+        f"cpu {t_cpu.tolist()}")
+    if not (err <= 1e-3 and s_err <= 1e-3) or not torch.equal(t_cpu, t_gpu):
+        raise AssertionError("kernels and plain versions disagree on a small input")
+
+
+def synthetic_pairs(n: int, seed: int):
+    """(speech 30 s, enrollment 10 s) pairs: tones with harmonics + noise."""
+    rng = np.random.default_rng(seed)
+    sr = 16000
+
+    def voice(seconds, f0):
+        t = np.arange(int(seconds * sr)) / sr
+        x = sum(np.sin(2 * np.pi * f0 * h * t) / h for h in range(1, 6))
+        env = 0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t)
+        return (0.1 * x * env + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
+
+    return [(voice(30.0, 110 + 20 * i), voice(10.0, 110 + 20 * i)) for i in range(n)]
+
+
+def run_main_path(torch, dev, batch: int, max_new: int):
+    """Phase 4: the engine at full Whisper-medium size."""
+    from robustsq_whisper_torch.decode.pipeline import chunked_encode
+    from robustsq_whisper_torch.decode.search import DecodeConfig, strip_eot
+    from robustsq_whisper_torch.init import init_params
+    from robustsq_whisper_torch.models import (
+        QFormerTSEncoder, TSDecoder, TSEncoderConfig, whisper_dims,
+    )
+    from robustsq_whisper_torch.ops import decode_attention as xa
+    from robustsq_whisper_torch.ops import flash_attention as fa
+    from robustsq_whisper_torch.ops import self_attention as sa
+    from robustsq_whisper_torch.serve import EngineConfig, TranscriptionEngine
+    from robustsq_whisper_torch.tokenizer import ByteTokenizer, special_tokens
+
+    wrappers = {
+        "flash_attention_tmaj": fa.flash_attention_tmaj,
+        "decode_cross_attention": xa.decode_cross_attention,
+        "decode_self_attention": sa.decode_self_attention,
+    }
+    dims = whisper_dims("medium")
+    ts = TSEncoderConfig(
+        num_query_tokens=16, num_hidden_layers=2, use_flash_attention=True,
+        flash_tmaj=True, gelu_approx=True,
+    )
+    t0 = time.perf_counter()
+    enc = init_params(QFormerTSEncoder(dims, ts), 0).to(dev, torch.bfloat16)
+    dec = init_params(TSDecoder(dims, cross_kv_bits=4, self_kv_bits=16), 1)
+    dec = dec.to(dev, torch.bfloat16)
+    n_par = sum(p.numel() for m in (enc, dec) for p in m.parameters())
+    log(f"medium weights: {n_par} parameters, seeded init {time.perf_counter() - t0:.1f} s")
+    st = special_tokens(multilingual=True)
+    items = synthetic_pairs(batch, seed=0)
+    launches = {}
+    for pq in (False, True):
+        dcfg = DecodeConfig(
+            max_new_tokens=max_new, eot=st.eot,
+            init_tokens=st.sot_sequence("en", "transcribe", True), beam_size=1,
+            quantize_cross_kv=True, quantize_weights=False, stop_early=True,
+            prefill_quantized=pq,
+        )
+        engine = TranscriptionEngine(
+            enc, dec, ByteTokenizer(), dcfg,
+            EngineConfig(batch_size=batch, speech_seconds=30.0, enroll_seconds=10.0),
+            device=dev,
+        )
+        engine.warmup()
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        texts = engine.transcribe(items)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: w.launches for n, w in wrappers.items()}
+        launches[pq] = counts
+        log(f"main path prefill_quantized={pq}: transcribe {wall * 1e3:.1f} ms "
+            f"for {batch} x 30 s; launches {counts}")
+        if not all(c > 0 for c in counts.values()):
+            raise AssertionError(f"a kernel was not launched on the main path: {counts}")
+        if len(texts) != batch or not all(isinstance(t, str) for t in texts):
+            raise AssertionError("transcribe returned no text per item")
+
+        # phase-timed pass over the same batch
+        times = {}
+        t0 = time.perf_counter()
+        staged = engine.stage(items)
+        torch.cuda.synchronize()
+        times["frontend"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        memory, prompt = chunked_encode(engine.encode, *staged, 0)
+        torch.cuda.synchronize()
+        times["encode"] = time.perf_counter() - t0
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            cross = dec.cross_kv(memory, quantize=pq)
+            cache = dec.init_cache(batch, 1 + 16 + len(dcfg.init_tokens) + max_new)
+            init = torch.tensor(dcfg.init_tokens, device=dev)[None].expand(batch, -1)
+            logits, _ = dec.prefill(init, prompt, cache, cross)
+            if not pq:
+                dec.quantize_cross(cross)
+            torch.cuda.synchronize()
+            times["cross_kv_prefill"] = time.perf_counter() - t0
+            del cross, cache
+        t0 = time.perf_counter()
+        tokens, scores = engine.run(memory, prompt)
+        torch.cuda.synchronize()
+        times["run"] = time.perf_counter() - t0
+        times["token_loop"] = times["run"] - times["cross_kv_prefill"]
+        n_tok = [len(r) for r in strip_eot(tokens.cpu().tolist(), st.eot)]
+        log(f"phases prefill_quantized={pq} (ms): "
+            + " ".join(f"{k} {v * 1e3:.1f}" for k, v in times.items())
+            + f"; decoded tokens per row {n_tok}")
+        if not pq:
+            profiled = (engine, staged, memory, prompt)
+        if memory.shape != (batch, 16 + dims.n_audio_ctx, dims.n_audio_state):
+            raise AssertionError(f"encoder memory shape {tuple(memory.shape)}")
+        if not (torch.isfinite(memory.float()).all() and torch.isfinite(logits).all()
+                and torch.isfinite(scores).all()):
+            raise AssertionError("non-finite encoder memory, logits or scores")
+        if tokens.shape != (batch, max_new) or not (
+            (tokens >= 0) & (tokens < dims.n_vocab)
+        ).all():
+            raise AssertionError("tokens out of shape or vocabulary")
+
+    # device busy share of encode and decode (prefill_quantized off), by
+    # profiler; last, because the profiler slows later host work
+    from robustsq_whisper_torch.ops._build import BUILD
+
+    engine, staged, memory, prompt = profiled
+    os.makedirs(BUILD, exist_ok=True)
+    for phase, fn in (
+        ("encode", lambda: chunked_encode(engine.encode, *staged, 0)),
+        ("run", lambda: engine.run(memory, prompt)),
+    ):
+        wall, busy, top = device_busy(torch, fn, str(BUILD / f"trace_{phase}.json"))
+        log(f"profile {phase}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+            f"({busy / wall:.1%}); top kernels (ms): "
+            + "; ".join(f"{n[:60]} {t:.2f}" for n, t in top))
+    return launches[False]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from robustsq_whisper_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    info = gpu_info()
+    log(f"gpu: {info}; torch {torch.__version__} cuda {torch.version.cuda}")
+    t_start = time.perf_counter()
+    secs, reports = _build.build_all()
+    log(f"kernel build: {secs:.1f} s")
+    for name, text in reports.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
+
+    batch, max_new = 4, 32
+    rows = check_kernels(torch, dev, batch, max_new)
+    check_small_agreement(torch, dev)
+    launches = run_main_path(torch, dev, batch, max_new)
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+        r.pop("tol")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}))
+    print(gpu_info())
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

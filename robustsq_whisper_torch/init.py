@@ -1,0 +1,50 @@
+"""Seeded random weights for the port's modules, from numpy alone.
+
+``init_params(module, seed)`` fills every parameter from
+``numpy.random.default_rng(seed)`` in a fixed order (sorted parameter
+names): linear and conv weights N(0, 1/fan_in), embeddings N(0, 1/width),
+the decoder's text positions and the Qformer's query tokens N(0, 0.02^2),
+layer norms 1 and biases 0 -- the scales of the JAX package's flax
+initialisers. Buffers (the sinusoid tables) keep their computed values. The
+same seed gives the same weights on any machine, with no JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from .models.whisper.modules import LayerNorm
+
+
+def _std(owner: nn.Module, name: str, p: torch.Tensor) -> float:
+    if name == "bias":
+        return 0.0
+    if isinstance(owner, nn.Embedding):
+        return p.shape[1] ** -0.5
+    if isinstance(owner, (nn.Linear, nn.Conv1d)):
+        return (p[0].numel()) ** -0.5  # 1 / sqrt(fan_in)
+    return 0.02  # positional_embedding, query_tokens
+
+
+@torch.no_grad()
+def init_params(module: nn.Module, seed: int) -> nn.Module:
+    rng = np.random.default_rng(seed)
+    owners = {
+        f"{mname}.{pname}" if mname else pname: (m, pname)
+        for mname, m in module.named_modules()
+        for pname, _ in m.named_parameters(recurse=False)
+    }
+    for full, p in sorted(module.named_parameters()):
+        owner, name = owners[full]
+        if isinstance(owner, LayerNorm):
+            p.fill_(1.0 if name == "weight" else 0.0)
+            continue
+        std = _std(owner, name, p)
+        if std == 0.0:
+            p.zero_()
+            continue
+        x = rng.standard_normal(tuple(p.shape), dtype=np.float32) * std
+        p.copy_(torch.from_numpy(x))
+    return module

@@ -1,0 +1,11 @@
+from .qformer import QFormerAdapter, QformerConfig
+from .ts_decoder import STARTOFPREV, TSDecoder
+from .ts_encoder import QFormerTSEncoder, TSEncoderConfig
+from .whisper.config import WhisperDims, whisper_dims
+from .whisper.modules import AudioEncoder, TextDecoder
+
+__all__ = [
+    "AudioEncoder", "QFormerAdapter", "QFormerTSEncoder", "QformerConfig",
+    "STARTOFPREV", "TSDecoder", "TSEncoderConfig", "TextDecoder",
+    "WhisperDims", "whisper_dims",
+]

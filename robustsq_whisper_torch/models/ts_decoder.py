@@ -1,0 +1,79 @@
+"""Speaker-prompted Whisper text decoder: the decode methods.
+
+Mirrors the decode side of ``TSDecoder`` in the JAX package's
+``models/ts_decoder.py``: the prefill runs [<|startofprev|>; speaker prompt;
+init tokens] once over the KV cache, then ``step`` extends one token at a
+time. The training forward comes with ROADMAP A12.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from .whisper.config import WhisperDims
+from .whisper.modules import TextDecoder
+
+STARTOFPREV = 50361  # <|startofprev|>
+
+
+class TSDecoder(nn.Module):
+    def __init__(
+        self,
+        dims: WhisperDims,
+        startofprev_token: int = STARTOFPREV,
+        use_spk_prompt: bool = True,
+        cross_kv_bits: int = 8,
+        self_kv_bits: int = 16,
+        flat_self_cache: bool = True,
+        tmin_self_cache: bool = False,
+    ):
+        super().__init__()
+        self.dims = dims
+        self.startofprev_token = startofprev_token
+        self.use_spk_prompt = use_spk_prompt
+        self.decoder = TextDecoder(
+            dims, cross_kv_bits=cross_kv_bits, self_kv_bits=self_kv_bits,
+            flat_self_cache=flat_self_cache, tmin_self_cache=tmin_self_cache,
+        )
+
+    def cross_kv(self, memory: torch.Tensor, quantize: bool = False):
+        return self.decoder.cross_kv(memory, quantize=quantize)
+
+    def quantize_cross(self, cross):
+        return self.decoder.quantize_cross(cross)
+
+    def init_cache(self, batch: int, max_len: int):
+        return self.decoder.init_cache(batch, max_len)
+
+    def prefill(
+        self,
+        init_tokens: torch.Tensor,  # (batch, n_init)
+        spk_prompt: Optional[torch.Tensor],  # (batch, n_q, n_state)
+        cache,
+        cross,
+    ):
+        """Run [startofprev; spk_prompt; init_tokens] once, filling the
+        cache. The next ``step`` uses ``pos = prompt_len + n_init``."""
+        b = init_tokens.shape[0]
+        tok_emb = self.decoder.embed(init_tokens)
+        if self.use_spk_prompt and spk_prompt is not None:
+            if spk_prompt.shape[0] != b:
+                spk_prompt = spk_prompt.expand(b, *spk_prompt.shape[1:])
+            sop = torch.full(
+                (b, 1), self.startofprev_token, dtype=init_tokens.dtype,
+                device=init_tokens.device,
+            )
+            x_emb = torch.cat(
+                [self.decoder.embed(sop), spk_prompt.to(tok_emb.dtype), tok_emb],
+                dim=1,
+            )
+        else:
+            x_emb = tok_emb
+        return self.decoder.prefill(x_emb, cache, cross)
+
+    def step(self, token: torch.Tensor, pos: torch.Tensor, cache, cross):
+        """token: (batch, 1) ids; pos: device int32 scalar position."""
+        return self.decoder.step(self.decoder.embed(token), pos, cache, cross)

@@ -1,0 +1,541 @@
+"""Whisper encoder and decoder as PyTorch modules, for greedy serving.
+
+Mirrors the JAX package's ``models/whisper/modules.py``: pre-LN residual
+attention blocks, GELU MLPs, sinusoidal audio positions, learned text
+positions and tied-embedding logits. Parameters live in the model dtype
+(bf16 on the card); matmuls run in it, layer norms and softmax in f32.
+
+The decode path keeps the JAX package's tensor contracts so the same
+tensors can be fed to both:
+
+- cross K/V: dense (layers, b, T, heads, hd), or the quantized 6-tuple
+  (k_q, k_s, v_q, v_s, v_zp, kv_len) with K/V transposed to
+  (layers, b, heads, hd[/2], T_pad);
+- self K/V: the flat (layers, b, T_pad, n_state) cache.
+
+Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
+item): the 5-D and time-minor self caches, the int8 self cache, W8A8 step
+weights, beam-grouped cross attention, the deferred beam reorder and the
+row-major flash route (``use_flash`` without ``flash_tmaj``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops.attention import causal_mask, dot_product_attention
+from ...ops.decode_attention import (
+    decode_cross_attention,
+    pack_int4,
+    unpack_int4,
+)
+from ...ops.flash_attention import flash_attention_tmaj
+from ...ops.self_attention import BLOCK_POS, decode_self_attention
+from .config import WhisperDims, sinusoids
+
+Cache = Tuple[torch.Tensor, ...]
+CrossKV = Tuple[torch.Tensor, ...]
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm computed in f32 whatever the parameter dtype; f32 out."""
+
+    def __init__(self, n: int, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(n))
+        self.bias = nn.Parameter(torch.zeros(n))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(
+            x.float(), self.weight.shape, self.weight.float(),
+            self.bias.float(), self.eps,
+        )
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that casts its input to the weight dtype (the compute
+    dtype), like a flax Dense with ``dtype`` set."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+def gelu(x: torch.Tensor, approx: bool) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh" if approx else "none")
+
+
+def quantize_kv_tensors(
+    k: torch.Tensor,  # (..., T, heads, head_dim), leading axes preserved
+    v: torch.Tensor,
+    bits: int = 8,
+    pad_to: int = 512,
+):
+    """Quantize projected K/V to the transposed decode layout: (k_q, k_s,
+    v_q, v_s, v_zp, kv_len), k_q/v_q of shape (..., heads, head_dim[/2],
+    T_padded). Asymmetric per channel: K's zero-point is softmax-invariant
+    and dropped; V's folds outside the attention (``out * v_s + v_zp``)."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    kv_len = k.shape[-3]
+    pad = (-kv_len) % pad_to
+    qmax = 127.0 if bits == 8 else 7.0
+
+    def quant(t):
+        tt = t.movedim(-3, -1).float()  # (..., h, d, T)
+        hi = tt.amax(dim=-1)
+        lo = tt.amin(dim=-1)
+        zp = (hi + lo) * 0.5
+        scale = torch.clamp((hi - lo) * (0.5 / qmax), min=1e-8)
+        q8 = torch.round((tt - zp[..., None]) / scale[..., None]).to(torch.int8)
+        if bits == 4:
+            q8 = pack_int4(q8)
+        if pad:
+            q8 = F.pad(q8, (0, pad))
+        return q8.contiguous(), scale, zp
+
+    k_q, k_s, _ = quant(k)
+    v_q, v_s, v_zp = quant(v)
+    kv = torch.tensor(kv_len, dtype=torch.int32, device=k.device)
+    return k_q, k_s, v_q, v_s, v_zp, kv
+
+
+class MultiHeadAttention(nn.Module):
+    """Whisper attention: q/v/out with bias, k without."""
+
+    def __init__(
+        self, n_state: int, n_head: int, use_flash: bool = False,
+        flash_tmaj: bool = False, kv_bits: int = 8,
+    ):
+        super().__init__()
+        self.n_state, self.n_head = n_state, n_head
+        self.use_flash, self.flash_tmaj, self.kv_bits = use_flash, flash_tmaj, kv_bits
+        self.query = Linear(n_state, n_state)
+        self.key = Linear(n_state, n_state, bias=False)
+        self.value = Linear(n_state, n_state)
+        self.out = Linear(n_state, n_state)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.query.weight.dtype
+
+    def _split(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, _ = x.shape
+        return x.reshape(b, t, self.n_head, self.n_state // self.n_head)
+
+    def _merge(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(x.shape[0], x.shape[1], self.n_state)
+
+    def kv(self, src: torch.Tensor):
+        """Keys and values of ``src``: 2x (batch, len, heads, head_dim)."""
+        return self._split(self.key(src)), self._split(self.value(src))
+
+    def kv_quant(self, src: torch.Tensor, pad_to: int = 512):
+        """Quantized transposed K/V of ``src`` (see quantize_kv_tensors)."""
+        return quantize_kv_tensors(
+            *self.kv(src), bits=self.kv_bits, pad_to=pad_to
+        )
+
+    def attend_quant(
+        self,
+        x: torch.Tensor,  # (batch, q_len, n_state)
+        k_q: torch.Tensor,  # ([layers,] batch, heads, hd[/2], T_pad)
+        k_s: torch.Tensor,  # (batch, heads, hd)
+        v_q: torch.Tensor,
+        v_s: torch.Tensor,
+        v_zp: torch.Tensor,
+        kv_len: torch.Tensor,  # int32 scalar
+        layer_idx: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Cross attention over the quantized K/V: the decode kernel at
+        q_len 1, a plain einsum over unpacked K/V for a prefill."""
+        q = self._split(self.query(x))  # (b, q, h, hd)
+        dt = self.dtype
+        if x.shape[1] == 1:
+            o = decode_cross_attention(
+                q[:, 0], k_q, v_q, k_s, kv_len=kv_len, layer_idx=layer_idx,
+                packed_int4=self.kv_bits == 4,
+            )  # (b, h, hd); v_s / v_zp applied here
+            o = o.float() * v_s + v_zp
+            return self.out(self._merge(o[:, None].to(dt)))
+        if layer_idx is not None:
+            raise NotImplementedError(
+                "stacked cross K/V with a multi-token query is speculative "
+                "decode (ROADMAP A11)"
+            )
+        if self.kv_bits == 4:
+            k_q, v_q = unpack_int4(k_q), unpack_int4(v_q)
+        qf = q.float() * (k_s[:, None].float() * q.shape[-1] ** -0.5)
+        # operands rounded to the compute dtype, products summed in f32
+        scores = torch.einsum(
+            "bqhd,bhdk->bhqk", qf.to(dt).float(), k_q.to(dt).float()
+        )
+        valid = torch.arange(k_q.shape[-1], device=x.device) < kv_len
+        scores = scores.masked_fill(~valid, -1e30)
+        w = torch.softmax(scores, dim=-1)
+        o = torch.einsum(
+            "bhqk,bhdk->bqhd", w.to(dt).float(), v_q.to(dt).float()
+        )
+        o = o * v_s[:, None].float() + v_zp[:, None].float()
+        return self.out(self._merge(o.to(dt)))
+
+    def attend(
+        self,
+        x: torch.Tensor,
+        k: torch.Tensor,
+        v: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        q = self._split(self.query(x))
+        if self.use_flash and mask is None and q.shape[1] >= 256:
+            raise NotImplementedError(
+                "the row-major flash kernel (use_flash without flash_tmaj) "
+                "is ROADMAP B5"
+            )
+        o = dot_product_attention(q, k, v, mask=mask)
+        return self.out(self._merge(o))
+
+    def self_attend_tmaj(self, x: torch.Tensor) -> torch.Tensor:
+        """Self-attention through the transposed-layout kernel: the
+        projections emit (b, n_state, T) directly, the head split is a free
+        reshape to (b*h, hd, T), and only the output projection returns to
+        (b, T, n_state)."""
+        b, t, _ = x.shape
+        h, d = self.n_head, self.n_state // self.n_head
+        xt = x.to(self.dtype).transpose(1, 2)  # (b, c, T) view
+
+        def proj(lin: Linear) -> torch.Tensor:
+            y = torch.matmul(lin.weight, xt)  # (b, n_state, T)
+            if lin.bias is not None:
+                y = y + lin.bias[None, :, None]
+            return y.contiguous().reshape(b * h, d, t)
+
+        o = flash_attention_tmaj(proj(self.query), proj(self.key), proj(self.value))
+        o = o.reshape(b, self.n_state, t).transpose(1, 2)
+        return F.linear(o, self.out.weight, self.out.bias)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        xa: Optional[torch.Tensor] = None,
+        mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        if (
+            self.flash_tmaj and self.use_flash and xa is None
+            and mask is None and x.shape[1] >= 256
+        ):
+            return self.self_attend_tmaj(x)
+        k, v = self.kv(x if xa is None else xa)
+        return self.attend(x, k, v, mask=mask)
+
+
+class ResidualAttentionBlock(nn.Module):
+    def __init__(
+        self, n_state: int, n_head: int, cross_attention: bool = False,
+        use_flash: bool = False, flash_tmaj: bool = False,
+        cross_kv_bits: int = 8, gelu_approx: bool = False,
+    ):
+        super().__init__()
+        self.n_head = n_head
+        self.gelu_approx = gelu_approx
+        self.attn_ln = LayerNorm(n_state)
+        self.attn = MultiHeadAttention(
+            n_state, n_head, use_flash, flash_tmaj=flash_tmaj
+        )
+        self.cross_attention = cross_attention
+        if cross_attention:
+            self.cross_attn_ln = LayerNorm(n_state)
+            self.cross_attn = MultiHeadAttention(
+                n_state, n_head, kv_bits=cross_kv_bits
+            )
+        self.mlp_ln = LayerNorm(n_state)
+        self.mlp_fc1 = Linear(n_state, 4 * n_state)
+        self.mlp_fc2 = Linear(4 * n_state, n_state)
+
+    def _cast(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.mlp_fc1.weight.dtype)
+
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mlp_fc2(gelu(self.mlp_fc1(x), self.gelu_approx))
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        xa: Optional[torch.Tensor] = None,
+        mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        x = x + self.attn(self._cast(self.attn_ln(x)), mask=mask)
+        if self.cross_attention:
+            x = x + self.cross_attn(self._cast(self.cross_attn_ln(x)), xa=xa)
+        return x + self._mlp(self._cast(self.mlp_ln(x)))
+
+    def _cross(
+        self, x: torch.Tensor, cross: CrossKV,
+        layer_idx: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        h = self._cast(self.cross_attn_ln(x))
+        if len(cross) == 6:  # quantized transposed cross K/V
+            return x + self.cross_attn.attend_quant(
+                h, *cross, layer_idx=layer_idx
+            )
+        return x + self.cross_attn.attend(h, *cross)
+
+    def prefill_news(
+        self, x: torch.Tensor, mask: torch.Tensor, cross: CrossKV
+    ):
+        """Multi-token prefix through the block; returns the new x and the
+        prefix's (k, v), each (batch, len, heads, hd), for the cache."""
+        h = self._cast(self.attn_ln(x))
+        k_new, v_new = self.attn.kv(h)
+        x = x + self.attn.attend(h, k_new, v_new, mask=mask)
+        x = self._cross(x, cross)
+        x = x + self._mlp(self._cast(self.mlp_ln(x)))
+        return x, (k_new, v_new)
+
+    def step_flat(
+        self,
+        x: torch.Tensor,  # (batch, 1, n_state)
+        cache: Cache,  # (k_flat, v_flat): (layers, b, T_pad, n_state)
+        layer: int,
+        layer_idx: torch.Tensor,  # device int32 scalar == layer
+        pos: torch.Tensor,  # device int32 scalar
+        pos_index: torch.Tensor,  # (1,) int64 copy of pos, for the write
+        cross: CrossKV,
+    ) -> torch.Tensor:
+        """One decode token through the block, over the flat cache."""
+        h = self._cast(self.attn_ln(x))
+        kf = self.attn.key(h)[:, 0]
+        vf = self.attn.value(h)[:, 0]
+        qf = self.attn.query(h)[:, 0]
+        o = decode_self_attention(
+            qf, kf, vf, cache, pos, layer_idx, heads=self.n_head
+        )
+        # The new row goes into the cache in place, right after this layer's
+        # read: the kernel reads only [0, pos) and merges the new token from
+        # its own operands, so this equals the JAX package's single write of
+        # every layer's row after the layer scan.
+        for buf, new in zip(cache, (kf, vf)):
+            buf[layer].index_copy_(1, pos_index, new[:, None])
+        x = x + self.attn.out(o[:, None])
+        x = self._cross(
+            x, cross, layer_idx=layer_idx if len(cross) == 6 else None
+        )
+        return x + self._mlp(self._cast(self.mlp_ln(x)))
+
+
+class AudioEncoder(nn.Module):
+    """Whisper audio encoder with the conv stem and the block stack exposed
+    separately, so the target-speaker encoder can insert its prompt."""
+
+    def __init__(
+        self, dims: WhisperDims, use_flash: bool = False,
+        flash_tmaj: bool = False, gelu_approx: bool = False,
+    ):
+        super().__init__()
+        self.dims = dims
+        self.gelu_approx = gelu_approx
+        d = dims.n_audio_state
+        self.conv1 = nn.Conv1d(dims.n_mels, d, 3, padding=1)
+        self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1)
+        self.register_buffer(
+            "positional_embedding",
+            torch.from_numpy(sinusoids(dims.n_audio_ctx, d)),
+        )
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(
+                d, dims.n_audio_head, use_flash=use_flash,
+                flash_tmaj=flash_tmaj, gelu_approx=gelu_approx,
+            )
+            for _ in range(dims.n_audio_layer)
+        )
+        self.ln_post = LayerNorm(d)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.conv1.weight.dtype
+
+    def conv_stem(
+        self, mel: torch.Tensor, add_positions: bool = True
+    ) -> torch.Tensor:
+        """(batch, n_mels, frames) -> (batch, frames // 2, n_state).
+        ``add_positions=False`` is the enrollment path."""
+        x = gelu(self.conv1(mel.to(self.dtype)), self.gelu_approx)
+        x = gelu(self.conv2(x), self.gelu_approx).transpose(1, 2)
+        if add_positions:
+            x = x + self.positional_embedding[: x.shape[1]].to(x.dtype)
+        return x
+
+    def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        for block in self.blocks:
+            x = block(x)
+        return self.ln_post(x).to(self.dtype)
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        return self.run_blocks(self.conv_stem(mel))
+
+    @staticmethod
+    def output_lengths(ilens: torch.Tensor, max_ctx: int) -> torch.Tensor:
+        """Conv2 length formula, clamped to the position budget."""
+        return torch.clamp(1 + (ilens - 3 + 2) // 2, max=max_ctx)
+
+
+class TextDecoder(nn.Module):
+    """Whisper text decoder with tied-embedding logits and the flat
+    KV-cache decode path."""
+
+    def __init__(
+        self, dims: WhisperDims, cross_kv_bits: int = 8,
+        self_kv_bits: int = 16, flat_self_cache: bool = True,
+        tmin_self_cache: bool = False,
+    ):
+        super().__init__()
+        self.dims = dims
+        self.cross_kv_bits = cross_kv_bits
+        self.self_kv_bits = self_kv_bits
+        self.flat_self_cache = flat_self_cache
+        self.tmin_self_cache = tmin_self_cache
+        d = dims.n_text_state
+        self.token_embedding = nn.Embedding(dims.n_vocab, d)
+        self.positional_embedding = nn.Parameter(torch.zeros(dims.n_text_ctx, d))
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(
+                d, dims.n_text_head, cross_attention=True,
+                cross_kv_bits=cross_kv_bits,
+            )
+            for _ in range(dims.n_text_layer)
+        )
+        self.ln = LayerNorm(d)
+        # device copies of the layer indices: the kernels read the layer
+        # from device memory, so the decode loop never syncs on it
+        self.register_buffer(
+            "layer_ids",
+            torch.arange(dims.n_text_layer, dtype=torch.int32),
+            persistent=False,
+        )
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.token_embedding.weight.dtype
+
+    def _check_flat(self) -> None:
+        """The only self cache of this slice is the dense flat one."""
+        d = self.dims
+        hd = d.n_text_state // d.n_text_head
+        if self.tmin_self_cache:
+            raise NotImplementedError(
+                "the time-minor self cache is ROADMAP B6 "
+                "(decode_self_attention_tmin)"
+            )
+        if self.self_kv_bits != 16:
+            raise NotImplementedError(
+                "the int8 self cache is ROADMAP queue B (the int8 flat "
+                "branch of decode_self_attention)"
+            )
+        if not (
+            self.flat_self_cache and d.n_text_state % 128 == 0 and 128 % hd == 0
+        ):
+            raise NotImplementedError(
+                "the 5-D self cache (flat_self_cache=False or dims the flat "
+                "cache cannot tile) comes with speculative decode, ROADMAP A11"
+            )
+
+    # ---- embedding / logits ----
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.token_embedding(tokens)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Tied-embedding output projection, returned in f32. On the card a
+        bf16 product is summed and returned in f32 without a bf16 rounding,
+        as the JAX einsum's ``preferred_element_type``; PyTorch's CPU
+        matmul has no such mode and rounds to the operand dtype."""
+        x, w = x.to(self.dtype), self.token_embedding.weight
+        if x.is_cuda and w.dtype != torch.float32:
+            flat = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+            return flat.reshape(*x.shape[:-1], w.shape[0])
+        return F.linear(x, w).float()
+
+    # ---- KV-cache decode path ----
+
+    def cross_kv(self, memory: torch.Tensor, quantize: bool = False):
+        """Per-layer K/V of the encoder memory stacked on a leading layer
+        axis; ``quantize=True`` gives the quantized 6-tuple."""
+        memory = memory.to(self.dtype)
+        per_layer = [
+            b.cross_attn.kv_quant(memory) if quantize else b.cross_attn.kv(memory)
+            for b in self.blocks
+        ]
+        return tuple(torch.stack(parts) for parts in zip(*per_layer))
+
+    def quantize_cross(self, cross: CrossKV):
+        """Dense stacked cross K/V -> the quantized decode layout, with
+        ``kv_len`` stacked per layer."""
+        k, v = cross
+        out = quantize_kv_tensors(k, v, bits=self.cross_kv_bits)
+        return out[:-1] + (out[-1].expand(k.shape[0]).contiguous(),)
+
+    def init_cache(self, batch: int, max_len: int) -> Cache:
+        """The dense flat self cache: 2x (layers, batch, pad_len, n_state),
+        pad_len a multiple of BLOCK_POS."""
+        self._check_flat()
+        d = self.dims
+        pad_len = -(-max_len // BLOCK_POS) * BLOCK_POS
+        shape = (d.n_text_layer, batch, pad_len, d.n_text_state)
+        dev = self.token_embedding.weight.device
+        return tuple(
+            torch.zeros(shape, dtype=self.dtype, device=dev) for _ in range(2)
+        )
+
+    @staticmethod
+    def _layer_cross(cross: CrossKV, i: int) -> CrossKV:
+        return tuple(c[i] for c in cross)
+
+    def prefill(self, x_emb: torch.Tensor, cache: Cache, cross: CrossKV):
+        """Run a multi-token prefix, filling cache[:, :, :len] in place.
+        Returns the f32 logits of the last position and the cache."""
+        self._check_flat()
+        b, length, _ = x_emb.shape
+        x = (x_emb + self.positional_embedding[:length]).to(self.dtype)
+        mask = causal_mask(length, device=x.device)
+        for i, block in enumerate(self.blocks):
+            x, news = block.prefill_news(x, mask, self._layer_cross(cross, i))
+            for buf, new in zip(cache, news):
+                buf[i, :, :length] = new.reshape(b, length, -1)
+        x = self.ln(x[:, -1:]).to(self.dtype)
+        return self.logits(x)[:, 0], cache
+
+    def step(
+        self,
+        token_emb: torch.Tensor,  # (batch, 1, n_state)
+        pos: torch.Tensor,  # device int32 scalar
+        cache: Cache,
+        cross: CrossKV,
+    ):
+        """One decode step over the flat cache, which is updated in place.
+        Returns the f32 logits (batch, n_vocab) and the cache."""
+        self._check_flat()
+        if token_emb.shape[1] != 1:
+            raise NotImplementedError(
+                "multi-token steps are speculative decode, ROADMAP A11"
+            )
+        pos_index = pos.reshape(1).long()
+        x = (
+            token_emb + self.positional_embedding.index_select(0, pos_index)
+        ).to(self.dtype)
+        quantized = len(cross) == 6
+        for i, block in enumerate(self.blocks):
+            if quantized:
+                k_q, k_s, v_q, v_s, v_zp, kv_len = cross
+                cross_i = (k_q, k_s[i], v_q, v_s[i], v_zp[i], kv_len[i])
+            else:
+                cross_i = self._layer_cross(cross, i)
+            x = block.step_flat(
+                x, cache, i, self.layer_ids[i], pos, pos_index, cross_i
+            )
+        x = self.ln(x).to(self.dtype)
+        return self.logits(x)[:, 0], cache

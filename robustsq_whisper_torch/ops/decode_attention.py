@@ -1,0 +1,149 @@
+"""One-query cross attention over quantized encoder K/V (the decode loop).
+
+``decode_cross_attention`` launches the hand-written CUDA kernel
+(``csrc/decode_cross_attention.cu``) for CUDA tensors and runs the plain
+version for CPU tensors. The contract is the JAX package's
+``decode_cross_attention`` with group 1:
+
+- K/V ride transposed as (batch, heads, d, T) or stacked per layer as
+  (layers, batch, heads, d, T) with ``layer_idx`` choosing the slab;
+- ``packed_int4`` stores two channels a byte along head_dim (``pack_int4``);
+- q is scaled by ``d**-0.5 * k_scale`` here, outside the kernel; positions
+  at or past ``kv_len`` are masked; ``v_scale`` multiplies the output and
+  the caller adds the V zero-point.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+_MODES = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 3}
+PACKED_INT4_MODE = 0
+
+
+def pack_int4(q4: torch.Tensor) -> torch.Tensor:
+    """Pack int4 values (ints in [-8, 7], axis -2 = head_dim, even length)
+    two a byte along head_dim: byte (..., i, t) holds channel ``i`` in its
+    low nibble and channel ``i + d/2`` in its high nibble. Returns int8 of
+    shape (..., head_dim // 2, T)."""
+    d = q4.shape[-2]
+    if d % 2:
+        raise ValueError(f"head_dim must be even, got {d}")
+    v = q4.to(torch.int32)
+    lo, hi = v[..., : d // 2, :], v[..., d // 2 :, :]
+    byte = ((hi << 4) | (lo & 0xF)) & 0xFF
+    return byte.to(torch.uint8).view(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pack_int4``: int32 in [-8, 7], head_dim restored on
+    axis -2."""
+    w = packed.to(torch.int32)  # sign-extended byte
+    lo = ((w & 0xF) ^ 8) - 8  # sign-extended low nibble
+    hi = w >> 4  # arithmetic shift: sign-extended high nibble
+    return torch.cat([lo, hi], dim=-2)
+
+
+def decode_cross_attention_plain(
+    qs: torch.Tensor,  # (batch, heads, d) f32, already scaled
+    kt: torch.Tensor,
+    vt: torch.Tensor,
+    kv_len,
+    layer_idx=None,
+    packed_int4: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: (batch, heads, d) f32."""
+    if layer_idx is not None:
+        kt, vt = kt[int(layer_idx)], vt[int(layer_idx)]
+    if packed_int4:
+        kt, vt = unpack_int4(kt), unpack_int4(vt)
+    s = torch.einsum("bhd,bhdt->bht", qs, kt.float())
+    live = torch.arange(kt.shape[-1], device=qs.device) < torch.as_tensor(
+        kv_len, device=qs.device
+    )
+    s = s.masked_fill(~live, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bht,bhdt->bhd", p, vt.float())
+
+
+def decode_cross_attention(
+    q: torch.Tensor,  # (batch, heads, head_dim)
+    kt: torch.Tensor,  # ([layers,] batch, heads, head_dim[/2], T)
+    vt: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,  # (batch, heads, head_dim)
+    v_scale: Optional[torch.Tensor] = None,
+    kv_len=None,  # int32 scalar: true length <= T
+    layer_idx=None,  # int32 scalar: slab of stacked kt/vt
+    packed_int4: bool = False,
+) -> torch.Tensor:
+    """softmax(q . K / sqrt(d)) @ V for one query position; returns
+    (batch, heads, head_dim) in q.dtype."""
+    b, h, d = q.shape
+    stacked = kt.dim() == 5
+    if stacked != (layer_idx is not None):
+        raise ValueError("layer_idx is given exactly when kt/vt are stacked")
+    if kt.shape != vt.shape or kt.shape[-2] != (d // 2 if packed_int4 else d):
+        raise ValueError(f"bad K/V shapes {kt.shape}, {vt.shape} for d={d}")
+    if tuple(kt.shape[-4:-2]) != (b, h):
+        raise ValueError(f"K/V {kt.shape} do not match q {q.shape}")
+    qs = q.float() * (d**-0.5)
+    if k_scale is not None:
+        qs = qs * k_scale.float()
+    if kv_len is None:
+        kv_len = kt.shape[-1]
+
+    if q.device.type == "cpu":
+        out = decode_cross_attention_plain(
+            qs, kt, vt, kv_len, layer_idx, packed_int4
+        )
+    elif q.device.type == "cuda":
+        out = _launch(qs, kt, vt, kv_len, layer_idx, packed_int4)
+    else:
+        raise ValueError(f"unsupported device {q.device}")
+    out = out.to(q.dtype)
+    if v_scale is not None:
+        out = (out.float() * v_scale.float()).to(q.dtype)
+    return out
+
+
+def _launch(qs, kt, vt, kv_len, layer_idx, packed_int4):
+    dev = qs.device
+    if packed_int4:
+        if kt.dtype != torch.int8:
+            raise TypeError("packed int4 K/V must be int8")
+        mode = PACKED_INT4_MODE
+    elif kt.dtype in _MODES:
+        mode = _MODES[kt.dtype]
+    else:
+        raise TypeError(f"unsupported K/V dtype {kt.dtype}")
+    if vt.dtype != kt.dtype:
+        raise TypeError("K and V must share a dtype")
+    for t in (kt, vt):
+        if t.device != dev:
+            raise ValueError("q and K/V must be on one device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("K/V must be contiguous and 16-byte aligned")
+    pad = (-kt.shape[-1]) % 4
+    if pad:  # the kernel reads 4 positions at a time; masking covers the pad
+        kt, vt = F.pad(kt, (0, pad)), F.pad(vt, (0, pad))
+    kv = _build.device_scalar(kv_len, dev)
+    li = None if layer_idx is None else _build.device_scalar(layer_idx, dev)
+    b, h, d = qs.shape
+    qs = qs.contiguous()
+    out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
+    err = _build.load("decode_cross_attention")(
+        qs.data_ptr(), kt.data_ptr(), vt.data_ptr(),
+        None if li is None else li.data_ptr(), kv.data_ptr(), out.data_ptr(),
+        b, h, d, kt.shape[-1], mode, _build.stream_ptr(dev),
+    )
+    _build.check(err, "decode_cross_attention")
+    decode_cross_attention.launches += 1
+    return out
+
+
+decode_cross_attention.launches = 0

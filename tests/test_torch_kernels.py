@@ -1,0 +1,160 @@
+"""The port's three main-path kernels against the JAX functions.
+
+On the CPU each port wrapper runs its plain PyTorch version, and the JAX
+function runs its Pallas kernel in interpret mode (``interpret=True``), so
+these tests hold the plain versions to the TPU kernels' semantics. Both
+sides compute in f32 from the same numpy inputs: the tolerance is f32
+summation-order noise (1e-5).
+
+``test_torch_cuda.py`` holds the CUDA kernels against these plain versions
+on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from robustsq_whisper_tpu.ops import attention as jatt
+from robustsq_whisper_tpu.ops import decode_attention as jdec
+from robustsq_whisper_tpu.ops import flash_attention as jflash
+from robustsq_whisper_tpu.ops import self_attention as jself
+from robustsq_whisper_torch.ops import attention as tatt
+from robustsq_whisper_torch.ops import decode_attention as tdec
+from robustsq_whisper_torch.ops import flash_attention as tflash
+from robustsq_whisper_torch.ops import self_attention as tself
+
+TOL = dict(rtol=1e-5, atol=1e-5)  # f32 vs f32, different summation order
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def test_plain_attention_and_masks_match_jax():
+    """The port's attention reference: dot_product_attention under a causal
+    and a padding mask, and the masks themselves."""
+    rng = _rng(0)
+    q = rng.standard_normal((2, 5, 3, 16), np.float32)
+    k, v = (rng.standard_normal((2, 7, 3, 16), np.float32) for _ in range(2))
+    lens = np.array([7, 4], np.int32)
+    np.testing.assert_array_equal(
+        tatt.causal_mask(5, 7).numpy(), np.asarray(jatt.causal_mask(5, 7))
+    )
+    j_pad = jatt.padding_mask(jnp.asarray(lens), 7)
+    t_pad = tatt.padding_mask(torch.from_numpy(lens), 7)
+    np.testing.assert_array_equal(t_pad.numpy(), np.asarray(j_pad))
+    for jm, tm in (
+        (jatt.causal_mask(5, 7), tatt.causal_mask(5, 7)), (j_pad, t_pad)
+    ):
+        ref = jatt.dot_product_attention(*map(jnp.asarray, (q, k, v)), mask=jm)
+        got = tatt.dot_product_attention(*map(torch.from_numpy, (q, k, v)), mask=tm)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("t_len", [256, 300])
+def test_flash_tmaj_plain_matches_jax(t_len):
+    rng = _rng(t_len)
+    q, k, v = (rng.standard_normal((4, 64, t_len), np.float32) for _ in range(3))
+    ref = jflash.flash_attention_tmaj(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True
+    )
+    got = tflash.flash_attention_tmaj(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_pack_int4_round_trip_and_layout():
+    rng = _rng(1)
+    q4 = rng.integers(-8, 8, (2, 3, 64, 40)).astype(np.int8)
+    packed = tdec.pack_int4(torch.from_numpy(q4))
+    assert packed.shape == (2, 3, 32, 40) and packed.dtype == torch.int8
+    np.testing.assert_array_equal(
+        packed.numpy(), np.asarray(jdec.pack_int4(jnp.asarray(q4)))
+    )
+    np.testing.assert_array_equal(tdec.unpack_int4(packed).numpy(), q4)
+
+
+def _cross_inputs(seed, mode, layers=3, b=2, h=2, d=64, t_pad=512):
+    rng = _rng(seed)
+    q = rng.standard_normal((b, h, d), np.float32)
+    # K scales keep the scores O(1), as a quantizer's would
+    k_s = rng.uniform(0.05, 0.2, (b, h, d)).astype(np.float32)
+    if mode == "int8":
+        k_s /= 127.0 / 7.0
+    shape = (layers, b, h, d, t_pad)
+    if mode == "fp":
+        kt = rng.standard_normal(shape, np.float32)
+        vt = rng.standard_normal(shape, np.float32)
+        return q, k_s, kt, vt
+    lo, hi = (-8, 8) if mode == "int4" else (-127, 128)
+    kt, vt = (rng.integers(lo, hi, shape).astype(np.int8) for _ in range(2))
+    if mode == "int4":
+        kt, vt = (np.array(jdec.pack_int4(jnp.asarray(x))) for x in (kt, vt))
+    return q, k_s, kt, vt
+
+
+@pytest.mark.parametrize("mode", ["int4", "int8", "fp"])
+def test_decode_cross_plain_matches_jax(mode):
+    q, k_s, kt, vt = _cross_inputs(7, mode)
+    kv_len, layer = 301, 1
+    ref = jdec.decode_cross_attention(
+        jnp.asarray(q), jnp.asarray(kt), jnp.asarray(vt), jnp.asarray(k_s),
+        kv_len=jnp.int32(kv_len), layer_idx=jnp.int32(layer),
+        interpret=True, packed_int4=mode == "int4",
+    )
+    got = tdec.decode_cross_attention(
+        torch.from_numpy(q), torch.from_numpy(kt), torch.from_numpy(vt),
+        torch.from_numpy(k_s), kv_len=torch.tensor(kv_len, dtype=torch.int32),
+        layer_idx=torch.tensor(layer, dtype=torch.int32),
+        packed_int4=mode == "int4",
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def _self_inputs(seed, layers=2, b=3, t_pad=16, heads=2, n_state=128):
+    rng = _rng(seed)
+    q, kn, vn = (rng.standard_normal((b, n_state), np.float32) for _ in range(3))
+    kc, vc = (
+        rng.standard_normal((layers, b, t_pad, n_state), np.float32)
+        for _ in range(2)
+    )
+    return q, kn, vn, kc, vc
+
+
+@pytest.mark.parametrize("pos", [0, 5, 15])
+def test_decode_self_plain_matches_jax(pos):
+    q, kn, vn, kc, vc = _self_inputs(pos)
+    ref = jself.decode_self_attention(
+        jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn),
+        (jnp.asarray(kc), jnp.asarray(vc)), jnp.int32(pos), jnp.int32(1),
+        heads=2, interpret=True,
+    )
+    t = torch.from_numpy
+    got = tself.decode_self_attention(
+        t(q), t(kn), t(vn), (t(kc), t(vc)), torch.tensor(pos, dtype=torch.int32),
+        torch.tensor(1, dtype=torch.int32), heads=2,
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    if pos == 0:  # nothing cached: exactly the new token's value
+        np.testing.assert_array_equal(got.numpy(), vn)
+
+
+def test_device_scalar_takes_ints_and_tensors():
+    """The kernels read kv_len / pos / layer_idx as int32 scalars in device
+    memory; a host int or an int64 tensor is converted, an int32 one kept."""
+    from robustsq_whisper_torch.ops import _build
+
+    kept = torch.tensor(7, dtype=torch.int32)
+    assert _build.device_scalar(kept, "cpu") is kept
+    for x in (7, torch.tensor(7)):
+        t = _build.device_scalar(x, "cpu")
+        assert t.dtype == torch.int32 and int(t) == 7
+    with pytest.raises(ValueError, match="scalar"):
+        _build.device_scalar(torch.tensor([1, 2]), "cpu")
+
+
+def test_int8_flat_cache_raises():
+    q, kn, vn, kc, vc = map(torch.from_numpy, _self_inputs(0))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tself.decode_self_attention(q, kn, vn, (kc, vc, kc), 1, 0, heads=2)
