@@ -5,31 +5,40 @@
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
-1. build the three CUDA kernels from ``robustsq_whisper_torch/csrc`` (one
+1. build the five CUDA kernels from ``robustsq_whisper_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print the build time;
 2. hold each kernel against its plain PyTorch version at the Whisper-medium
-   main-path shapes (batch 4), print the errors, the kernel's median time,
-   the plain version's, a library call's where one computes the same
-   function, and the least time the card could take (bound);
-3. small-input agreement: a small model greedy-decodes the same input with
+   main-path shapes (batch 4, beam 5), print the errors, the kernel's median
+   time, the plain version's, a library call's where one computes the same
+   function, and the least time the card could take (bound); the beam
+   reorder is timed at the JAX bench's beam shape too;
+3. small-input agreement: a small model greedy-decodes, and beam-decodes
+   with beam 3 (eager reorder, and ``defer_reorder=4``), the same input with
    the kernels (f32, on the card) and with the plain versions (on the CPU);
    the tokens must be identical;
-4. the main path at full Whisper-medium width and depth (bf16, seeded random
-   weights, the bench lane's settings): ``TranscriptionEngine.transcribe``
-   on 4 synthetic (30 s speech, 10 s enrollment) pairs, 32 new tokens at
-   most, once with ``prefill_quantized`` off and once on. Every kernel's
-   launch count is set to 0 just before each run and must be > 0 after it.
-   A second, phase-timed pass prints frontend, encode, cross-KV + prefill
-   and token-loop times.
+4. the main paths at full Whisper-medium width and depth (bf16, seeded
+   random weights, the bench lanes' settings), each a
+   ``TranscriptionEngine.transcribe`` on 4 synthetic (30 s speech, 10 s
+   enrollment) pairs, 32 new tokens at most: greedy with
+   ``prefill_quantized`` off and on, then beam 5 (20 beam rows) with the
+   eager reorder and with ``defer_reorder=8``. Every kernel's launch count
+   is set to 0 just before each run, and each kernel of that run's path
+   must show > 0 after it. A phase-timed greedy pass prints frontend,
+   encode, cross-KV + prefill and token-loop times; the profiler reads the
+   device's busy share of the encode, the greedy run and both beam runs.
 
 The next-to-last lines are the JSON kernel record and the card's name and
-power limit (``nvidia-smi``); the last line is the JSON ok record. Needs one
+power limit (``nvidia-smi``); the last line is the JSON ok record. A
+kernel's ``launches`` are those of the path it was ported for (greedy, the
+eager beam path, or the deferred one for the settled kernel);
+``launches_by_path`` has every path's. Needs one
 CUDA device; without one it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import os
 import statistics
@@ -42,6 +51,9 @@ import numpy as np
 HBM_BYTES_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 SIMT
 TPU_SRC = "robustsq_whisper_tpu/ops"
+# the JAX bench's beam sub-record: batch 64 x beam 5 rows, cache length 152
+# at 128 new tokens, live 85 positions at its measured step
+BENCH_BEAM = (64 * 5, 152, 85)
 
 
 def log(msg: str) -> None:
@@ -112,8 +124,9 @@ def bound(bytes_moved: float, ops: float, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernels(torch, dev, batch: int, max_new: int):
+def check_kernels(torch, dev, batch: int, max_new: int, beam: int):
     """Phase 2: each kernel against its plain version at medium shapes."""
+    from robustsq_whisper_torch.ops import beam_gather as bg
     from robustsq_whisper_torch.ops import decode_attention as xa
     from robustsq_whisper_torch.ops import flash_attention as fa
     from robustsq_whisper_torch.ops import self_attention as sa
@@ -162,10 +175,10 @@ def check_kernels(torch, dev, batch: int, max_new: int):
     call = lambda: xa.decode_cross_attention(
         qx, kt, vt, k_s, kv_len=kv_len, layer_idx=li, packed_int4=True
     )
-    qs = qx * hd**-0.5 * k_s
+    qs = (qx * hd**-0.5 * k_s)[:, :, None]  # (b, h, 1, d)
     launch = lambda: xa._launch(qs, kt, vt, kv_len, li, True)  # kernel alone
     plain = lambda: xa.decode_cross_attention_plain(qs, kt, vt, kv_len, 7, True)
-    err = (call() - plain()).abs().max().item()
+    err = (call() - plain()[:, :, 0]).abs().max().item()
     b_ms, b_by = bound(
         2 * batch * heads * (hd // 2) * t_enc + 2 * batch * heads * hd * 4,
         4 * batch * heads * hd * t_enc, "f32",
@@ -174,6 +187,29 @@ def check_kernels(torch, dev, batch: int, max_new: int):
         name="decode_cross_attention", route="cuda",
         source="robustsq_whisper_torch/csrc/decode_cross_attention.cu",
         replaces=f"{TPU_SRC}/decode_attention.py:79",
+        max_abs_err=err, tol=1e-4,  # f32 math, __expf vs torch.exp
+        ms=time_ms(torch, launch, 50), plain_ms=time_ms(torch, plain, 10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+
+    # 2b. the same, grouped: the beam-5 queries of each utterance share K/V
+    qg = torch.randn(batch, heads, beam, hd, generator=g, device=dev)
+    call = lambda: xa.decode_cross_attention(
+        qg, kt, vt, k_s, kv_len=kv_len, layer_idx=li, packed_int4=True,
+        group=beam,
+    )
+    qs = qg * hd**-0.5 * k_s[:, :, None]
+    launch = lambda: xa._launch(qs, kt, vt, kv_len, li, True)
+    plain = lambda: xa.decode_cross_attention_plain(qs, kt, vt, kv_len, 7, True)
+    err = (call() - plain()).abs().max().item()
+    b_ms, b_by = bound(
+        2 * batch * heads * (hd // 2) * t_enc + 2 * batch * heads * beam * hd * 4,
+        4 * batch * heads * beam * hd * t_enc, "f32",
+    )
+    rows.append(dict(
+        name="decode_cross_attention_grouped", route="cuda",
+        source="robustsq_whisper_torch/csrc/decode_cross_attention.cu",
+        replaces=f"{TPU_SRC}/decode_attention.py:156",
         max_abs_err=err, tol=1e-4,  # f32 math, __expf vs torch.exp
         ms=time_ms(torch, launch, 50), plain_ms=time_ms(torch, plain, 10),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -208,6 +244,69 @@ def check_kernels(torch, dev, batch: int, max_new: int):
         ms=time_ms(torch, call, 50), plain_ms=time_ms(torch, plain, 10),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
+
+    # 4. beam reorder of the flat cache (two bf16 leaves, in place), at the
+    # beam-5 main path's last step and at the JAX bench's beam shape
+    rb = batch * beam
+    shapes = {
+        "main path": (rb, -(-(17 + 4 + max_new) // 8) * 8, 17 + 4 + max_new - 2),
+        "bench beam": BENCH_BEAM,
+    }
+    for where, (n_rows, t_len, live) in shapes.items():
+        leaves = tuple(
+            torch.randn(layers, n_rows, t_len, n_state, generator=g, device=dev).bfloat16()
+            for _ in range(2)
+        )
+        src = torch.randperm(n_rows, generator=g, device=dev)
+        src[1::3] = src[0::3][: src[1::3].numel()]  # repeats as well as moves
+        p = bg.live_positions(live, t_len)
+        got = bg.beam_reorder_cache(tuple(x.clone() for x in leaves), src, live, t_len)
+        ref = bg.beam_reorder_cache_plain(tuple(x.clone() for x in leaves), src, p)
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+        call = lambda: bg.beam_reorder_cache(leaves, src, live, t_len)
+        plain = lambda: bg.beam_reorder_cache_plain(leaves, src, p)
+        library = lambda: [x[:, :, :p].index_select(1, src) for x in leaves]
+        b_ms, b_by = bound(2 * 2 * layers * n_rows * p * n_state * 2 + n_rows * 8, 0, "bf16")
+        row = dict(
+            name="beam_reorder_cache", route="cuda",
+            source="robustsq_whisper_torch/csrc/beam_reorder_cache.cu",
+            replaces=f"{TPU_SRC}/beam_gather.py:122",
+            max_abs_err=err, tol=0.0,  # a copy: exact
+            ms=time_ms(torch, call, 20), plain_ms=time_ms(torch, plain, 5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, library, 5),
+        )
+        log(f"beam_reorder_cache at the {where} shape ({layers} x {n_rows} rows "
+            f"x {p} of {t_len} positions x {n_state}, 2 bf16 leaves): "
+            f"max_abs_err {err} ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+            f"bound_ms {b_ms:.4f} library_ms (index_select) {row['library_ms']:.4f}")
+        if where == "main path":
+            rows.append(row)
+        del leaves, got, ref
+
+    # 6. settled-prefix state through a shuffled row map, bf16 flat cache
+    settled, t_len = 48, 64
+    qd = torch.randn(rb, n_state, generator=g, device=dev).bfloat16()
+    kc, vc = (
+        torch.randn(layers, rb, t_len, n_state, generator=g, device=dev).bfloat16()
+        for _ in range(2)
+    )
+    rmap = torch.randperm(rb, generator=g, device=dev)
+    st = torch.tensor(settled, dtype=torch.int32, device=dev)
+    call = lambda: sa.settled_self_attention(qd, (kc, vc), st, li, rmap, heads)
+    plain = lambda: sa.settled_self_attention_plain(qd, (kc, vc), settled, 7, rmap, heads)
+    err = max((a - b).abs().max().item() for a, b in zip(call(), plain()))
+    b_ms, b_by = bound(
+        2 * rb * settled * n_state * 2 + rb * n_state * (2 + 4) + 2 * rb * heads * 4,
+        4 * rb * n_state * settled, "bf16",
+    )
+    rows.append(dict(
+        name="settled_self_attention", route="cuda",
+        source="robustsq_whisper_torch/csrc/settled_self_attention.cu",
+        replaces=f"{TPU_SRC}/self_attention.py:276",
+        max_abs_err=err, tol=1e-3,  # f32 state from bf16 inputs
+        ms=time_ms(torch, call, 50), plain_ms=time_ms(torch, plain, 10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
     for r in rows:
         log(
             f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
@@ -222,8 +321,9 @@ def check_kernels(torch, dev, batch: int, max_new: int):
 
 def check_small_agreement(torch, dev) -> None:
     """Phase 3: kernels (card, f32) and plain versions (CPU) decode a small
-    model's input to the same tokens."""
-    from robustsq_whisper_torch.decode.search import DecodeConfig, build_greedy_decoder
+    model's input to the same tokens, greedy and with beam 3 (eager and
+    deferred reorder)."""
+    from robustsq_whisper_torch.decode.search import DecodeConfig, build_beam_decoder
     from robustsq_whisper_torch.init import init_params
     from robustsq_whisper_torch.models import (
         QFormerTSEncoder, TSDecoder, TSEncoderConfig, WhisperDims,
@@ -245,26 +345,50 @@ def check_small_agreement(torch, dev) -> None:
     mel = torch.from_numpy(rng.standard_normal((2, 80, 512)).astype(np.float32))
     emel = torch.from_numpy(rng.standard_normal((2, 80, 120)).astype(np.float32))
     lens, elens = torch.tensor([512, 400]), torch.tensor([120, 90])
-    cfg = DecodeConfig(
-        max_new_tokens=12, eot=2, init_tokens=(1, 4), quantize_cross_kv=True
-    )
-    out = {}
+    # the prefix is 1 + 4 + 2 = 7 positions, so with R = 8 the deferred
+    # reorder flushes a non-empty settled prefix at position 16
+    base = dict(max_new_tokens=16, eot=2, init_tokens=(1, 4), quantize_cross_kv=True)
+    cfgs = {
+        "greedy": DecodeConfig(**base),
+        "beam 3": DecodeConfig(**base, beam_size=3),
+        "beam 3 defer_reorder=4": DecodeConfig(**base, beam_size=3, defer_reorder=4),
+    }
+    mems = {}
     for where in ("cpu", dev):
         e = copy.deepcopy(enc).to(where)
         with torch.inference_mode():
-            mem, _, prompt, _ = e(
+            mems[str(where)] = e(
                 mel.to(where), lens.to(where), emel.to(where), elens.to(where)
             )
-        run = build_greedy_decoder(copy.deepcopy(dec), cfg, device=where)
-        tokens, scores = run(mem, prompt)
-        out[str(where)] = (mem.cpu(), tokens.cpu(), scores.cpu())
-    (m_cpu, t_cpu, s_cpu), (m_gpu, t_gpu, s_gpu) = out["cpu"], out[str(dev)]
+    m_cpu, m_gpu = mems["cpu"][0], mems[str(dev)][0].cpu()
     err = (m_cpu - m_gpu).abs().max().item()
-    s_err = (s_cpu - s_gpu).abs().max().item()
-    log(f"small agreement: encoder max_abs_err {err:.3e}, score max_abs_err "
-        f"{s_err:.3e} (tol 1e-3 each, f32); tokens card {t_gpu.tolist()} "
-        f"cpu {t_cpu.tolist()}")
-    if not (err <= 1e-3 and s_err <= 1e-3) or not torch.equal(t_cpu, t_gpu):
+    log(f"small agreement: encoder max_abs_err {err:.3e} (tol 1e-3, f32)")
+    ok = err <= 1e-3
+    # the random encoder's memory decodes to few distinct tokens; a memory
+    # and prompt of larger scale make the beams reorder at most steps
+    inputs = {
+        "encoder output": {str(w): (m[0], m[2]) for w, m in mems.items()},
+        "random memory": {
+            w: (torch.from_numpy(rng.standard_normal((2, 40, 128)).astype(np.float32) * 3),
+                torch.from_numpy(rng.standard_normal((2, 4, 128)).astype(np.float32) * 3))
+            for w in ["cpu"]
+        },
+    }
+    inputs["random memory"][str(dev)] = tuple(
+        x.to(dev) for x in inputs["random memory"]["cpu"]
+    )
+    for (src, pair), (name, cfg) in itertools.product(inputs.items(), cfgs.items()):
+        out = {}
+        for where in ("cpu", dev):
+            run = build_beam_decoder(copy.deepcopy(dec), cfg, device=where)
+            tokens, scores = run(*pair[str(where)])
+            out[str(where)] = (tokens.cpu(), scores.cpu())
+        (t_cpu, s_cpu), (t_gpu, s_gpu) = out["cpu"], out[str(dev)]
+        s_err = (s_cpu - s_gpu).abs().max().item()
+        log(f"small agreement, {name} on {src}: score max_abs_err {s_err:.3e} "
+            f"(tol 1e-3, f32); tokens card {t_gpu.tolist()} cpu {t_cpu.tolist()}")
+        ok = ok and s_err <= 1e-3 and torch.equal(t_cpu, t_gpu)
+    if not ok:
         raise AssertionError("kernels and plain versions disagree on a small input")
 
 
@@ -282,25 +406,54 @@ def synthetic_pairs(n: int, seed: int):
     return [(voice(30.0, 110 + 20 * i), voice(10.0, 110 + 20 * i)) for i in range(n)]
 
 
-def run_main_path(torch, dev, batch: int, max_new: int):
-    """Phase 4: the engine at full Whisper-medium size."""
-    from robustsq_whisper_torch.decode.pipeline import chunked_encode
-    from robustsq_whisper_torch.decode.search import DecodeConfig, strip_eot
+def launch_counters():
+    """{kernel row name: (wrapper, counter attribute)}, every kernel."""
+    from robustsq_whisper_torch.ops import beam_gather as bg
+    from robustsq_whisper_torch.ops import decode_attention as xa
+    from robustsq_whisper_torch.ops import flash_attention as fa
+    from robustsq_whisper_torch.ops import self_attention as sa
+
+    return {
+        "flash_attention_tmaj": (fa.flash_attention_tmaj, "launches"),
+        "decode_cross_attention": (xa.decode_cross_attention, "launches"),
+        "decode_cross_attention_grouped": (xa.decode_cross_attention, "grouped_launches"),
+        "decode_self_attention": (sa.decode_self_attention, "launches"),
+        "beam_reorder_cache": (bg.beam_reorder_cache, "launches"),
+        "settled_self_attention": (sa.settled_self_attention, "launches"),
+    }
+
+
+def counted_transcribe(torch, engine, items, path: str, expect):
+    """Transcribe with every launch count set to 0 just before and read just
+    after; each kernel in ``expect`` must have launched. Returns (wall s,
+    {kernel: launches})."""
+    counters = launch_counters()
+    engine.warmup()
+    torch.cuda.synchronize()
+    for w, attr in counters.values():
+        setattr(w, attr, 0)
+    t0 = time.perf_counter()
+    texts = engine.transcribe(items)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: getattr(w, attr) for n, (w, attr) in counters.items()}
+    log(f"main path {path}: transcribe {wall * 1e3:.1f} ms for {len(items)} x 30 s; "
+        f"launches {counts}")
+    missing = [n for n in expect if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+    if len(texts) != len(items) or not all(isinstance(t, str) for t in texts):
+        raise AssertionError("transcribe returned no text per item")
+    return wall, counts
+
+
+def medium_models(torch, dev):
+    """Whisper-medium TS encoder and decoder, bf16, seeded random weights."""
     from robustsq_whisper_torch.init import init_params
     from robustsq_whisper_torch.models import (
         QFormerTSEncoder, TSDecoder, TSEncoderConfig, whisper_dims,
     )
-    from robustsq_whisper_torch.ops import decode_attention as xa
-    from robustsq_whisper_torch.ops import flash_attention as fa
-    from robustsq_whisper_torch.ops import self_attention as sa
-    from robustsq_whisper_torch.serve import EngineConfig, TranscriptionEngine
-    from robustsq_whisper_torch.tokenizer import ByteTokenizer, special_tokens
 
-    wrappers = {
-        "flash_attention_tmaj": fa.flash_attention_tmaj,
-        "decode_cross_attention": xa.decode_cross_attention,
-        "decode_self_attention": sa.decode_self_attention,
-    }
     dims = whisper_dims("medium")
     ts = TSEncoderConfig(
         num_query_tokens=16, num_hidden_layers=2, use_flash_attention=True,
@@ -312,37 +465,49 @@ def run_main_path(torch, dev, batch: int, max_new: int):
     dec = dec.to(dev, torch.bfloat16)
     n_par = sum(p.numel() for m in (enc, dec) for p in m.parameters())
     log(f"medium weights: {n_par} parameters, seeded init {time.perf_counter() - t0:.1f} s")
+    return dims, enc, dec
+
+
+def engine_for(torch, dev, enc, dec, batch: int, max_new: int, **cfg):
+    from robustsq_whisper_torch.decode.search import DecodeConfig
+    from robustsq_whisper_torch.serve import EngineConfig, TranscriptionEngine
+    from robustsq_whisper_torch.tokenizer import ByteTokenizer, special_tokens
+
     st = special_tokens(multilingual=True)
+    dcfg = DecodeConfig(
+        max_new_tokens=max_new, eot=st.eot,
+        init_tokens=st.sot_sequence("en", "transcribe", True),
+        quantize_cross_kv=True, quantize_weights=False, stop_early=True, **cfg,
+    )
+    return TranscriptionEngine(
+        enc, dec, ByteTokenizer(), dcfg,
+        EngineConfig(batch_size=batch, speech_seconds=30.0, enroll_seconds=10.0),
+        device=dev,
+    )
+
+
+GREEDY_KERNELS = ("flash_attention_tmaj", "decode_cross_attention", "decode_self_attention")
+OWN_PATH = {  # the path a kernel was ported for, where not greedy's
+    "decode_cross_attention_grouped": "beam 5 eager",
+    "beam_reorder_cache": "beam 5 eager",
+    "settled_self_attention": "beam 5 defer_reorder=8",
+}
+
+
+def run_main_path(torch, dev, models, batch: int, max_new: int):
+    """Phase 4, greedy: the engine at full Whisper-medium size."""
+    from robustsq_whisper_torch.decode.pipeline import chunked_encode
+    from robustsq_whisper_torch.decode.search import strip_eot
+
+    dims, enc, dec = models
     items = synthetic_pairs(batch, seed=0)
     launches = {}
     for pq in (False, True):
-        dcfg = DecodeConfig(
-            max_new_tokens=max_new, eot=st.eot,
-            init_tokens=st.sot_sequence("en", "transcribe", True), beam_size=1,
-            quantize_cross_kv=True, quantize_weights=False, stop_early=True,
-            prefill_quantized=pq,
+        engine = engine_for(torch, dev, enc, dec, batch, max_new, prefill_quantized=pq)
+        dcfg = engine.dcfg
+        _, launches[pq] = counted_transcribe(
+            torch, engine, items, f"greedy prefill_quantized={pq}", GREEDY_KERNELS
         )
-        engine = TranscriptionEngine(
-            enc, dec, ByteTokenizer(), dcfg,
-            EngineConfig(batch_size=batch, speech_seconds=30.0, enroll_seconds=10.0),
-            device=dev,
-        )
-        engine.warmup()
-        torch.cuda.synchronize()
-        for w in wrappers.values():
-            w.launches = 0
-        t0 = time.perf_counter()
-        texts = engine.transcribe(items)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {n: w.launches for n, w in wrappers.items()}
-        launches[pq] = counts
-        log(f"main path prefill_quantized={pq}: transcribe {wall * 1e3:.1f} ms "
-            f"for {batch} x 30 s; launches {counts}")
-        if not all(c > 0 for c in counts.values()):
-            raise AssertionError(f"a kernel was not launched on the main path: {counts}")
-        if len(texts) != batch or not all(isinstance(t, str) for t in texts):
-            raise AssertionError("transcribe returned no text per item")
 
         # phase-timed pass over the same batch
         times = {}
@@ -370,7 +535,7 @@ def run_main_path(torch, dev, batch: int, max_new: int):
         torch.cuda.synchronize()
         times["run"] = time.perf_counter() - t0
         times["token_loop"] = times["run"] - times["cross_kv_prefill"]
-        n_tok = [len(r) for r in strip_eot(tokens.cpu().tolist(), st.eot)]
+        n_tok = [len(r) for r in strip_eot(tokens.cpu().tolist(), dcfg.eot)]
         log(f"phases prefill_quantized={pq} (ms): "
             + " ".join(f"{k} {v * 1e3:.1f}" for k, v in times.items())
             + f"; decoded tokens per row {n_tok}")
@@ -386,21 +551,74 @@ def run_main_path(torch, dev, batch: int, max_new: int):
         ).all():
             raise AssertionError("tokens out of shape or vocabulary")
 
-    # device busy share of encode and decode (prefill_quantized off), by
-    # profiler; last, because the profiler slows later host work
+    return launches[False], profiled
+
+
+BEAM_PATHS = {  # path: (config, kernels it must launch)
+    "beam 5 eager": (
+        dict(beam_size=5),
+        ("beam_reorder_cache", "decode_cross_attention_grouped", "decode_self_attention"),
+    ),
+    "beam 5 defer_reorder=8": (
+        dict(beam_size=5, defer_reorder=8),
+        ("settled_self_attention", "beam_reorder_cache", "decode_cross_attention_grouped"),
+    ),
+}
+
+
+def run_beam_paths(torch, dev, models, batch: int, max_new: int):
+    """Phase 4, beam search: beam 5 over batch rows x 5 beam rows, with the
+    eager reorder and with the deferred one (the prefix is 21 positions, so
+    with R = 8 the first window starts at 16 and flushes come at positions
+    24, 32, 40 and 48)."""
+    from robustsq_whisper_torch.decode.pipeline import chunked_encode
+    from robustsq_whisper_torch.decode.search import strip_eot
+
+    dims, enc, dec = models
+    items = synthetic_pairs(batch, seed=0)
+    launches, engines = {}, {}
+    for path, (cfg, expect) in BEAM_PATHS.items():
+        engine = engine_for(torch, dev, enc, dec, batch, max_new, **cfg)
+        _, launches[path] = counted_transcribe(torch, engine, items, path, expect)
+        engines[path] = engine
+    # the two reorders decode the same tokens
+    staged = engines["beam 5 eager"].stage(items)
+    outs = {}
+    for path, engine in engines.items():
+        memory, prompt = chunked_encode(engine.encode, *staged, 0)
+        tokens, scores = engine.run(memory, prompt)
+        outs[path] = (tokens.cpu(), scores.cpu())
+    (t_e, s_e), (t_d, s_d) = outs.values()
+    n_tok = [len(r) for r in strip_eot(t_e.tolist(), engines["beam 5 eager"].dcfg.eot)]
+    log(f"beam 5: eager and deferred tokens identical {torch.equal(t_e, t_d)}, "
+        f"score max_abs_diff {(s_e - s_d).abs().max().item():.3e}; decoded tokens "
+        f"per row {n_tok}")
+    if t_e.shape != (batch, max_new) or not (torch.isfinite(s_e).all() and
+                                             ((t_e >= 0) & (t_e < dims.n_vocab)).all()):
+        raise AssertionError("beam tokens out of shape or vocabulary, or scores not finite")
+    return launches, (engines, memory, prompt)
+
+
+def profile_runs(torch, greedy, beam) -> None:
+    """Device busy share of the encode, the greedy run and the two beam
+    runs, by profiler; last, because the profiler slows later host work."""
+    from robustsq_whisper_torch.decode.pipeline import chunked_encode
     from robustsq_whisper_torch.ops._build import BUILD
 
-    engine, staged, memory, prompt = profiled
+    engine, staged, memory, prompt = greedy
+    b_engines, b_memory, b_prompt = beam
+    eager, deferred = (b_engines[p].run for p in BEAM_PATHS)
     os.makedirs(BUILD, exist_ok=True)
     for phase, fn in (
         ("encode", lambda: chunked_encode(engine.encode, *staged, 0)),
         ("run", lambda: engine.run(memory, prompt)),
+        ("beam_run", lambda: eager(b_memory, b_prompt)),
+        ("beam_run_deferred", lambda: deferred(b_memory, b_prompt)),
     ):
         wall, busy, top = device_busy(torch, fn, str(BUILD / f"trace_{phase}.json"))
         log(f"profile {phase}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
             f"({busy / wall:.1%}); top kernels (ms): "
             + "; ".join(f"{n[:60]} {t:.2f}" for n, t in top))
-    return launches[False]
 
 
 def main() -> int:
@@ -424,12 +642,17 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
-    batch, max_new = 4, 32
-    rows = check_kernels(torch, dev, batch, max_new)
+    batch, max_new, beam = 4, 32, 5
+    rows = check_kernels(torch, dev, batch, max_new, beam)
     check_small_agreement(torch, dev)
-    launches = run_main_path(torch, dev, batch, max_new)
-    for r in rows:
-        r["launches"] = launches[r["name"]]
+    models = medium_models(torch, dev)
+    greedy_launches, greedy = run_main_path(torch, dev, models, batch, max_new)
+    beam_launches, beam_run = run_beam_paths(torch, dev, models, batch, max_new)
+    profile_runs(torch, greedy, beam_run)
+    by_path = {"greedy": greedy_launches, **beam_launches}
+    for r in rows:  # launches on the path this row's kernel was ported for
+        r["launches"] = by_path[OWN_PATH.get(r["name"], "greedy")][r["name"]]
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r.pop("tol")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

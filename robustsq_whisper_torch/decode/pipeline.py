@@ -1,9 +1,11 @@
 """The serving program pair (encode, run) and the sub-batched encode.
 
-Mirrors the single-device Qformer greedy case of the JAX package's
-``decode/pipeline.py::build_decode_fns``. Mesh serving (data or tensor
-parallel), joint CTC, speculative decode and embedding enrollment are later
-slices and raise ``NotImplementedError``. The Kaldi data-dir batch job
+Mirrors the single-device Qformer case of the JAX package's
+``decode/pipeline.py::build_decode_fns``, greedy or beam search as
+``DecodeConfig.beam_size`` says (``run`` returns the best beam of each
+utterance). Mesh serving (data or tensor parallel), joint CTC, speculative
+decode and embedding enrollment are later slices and raise
+``NotImplementedError``. The Kaldi data-dir batch job
 (``decode_dataset``) comes with ROADMAP A8's bench.
 """
 

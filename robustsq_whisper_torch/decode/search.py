@@ -1,14 +1,24 @@
-"""Batched KV-cache greedy decode for TS-Whisper.
+"""Batched KV-cache greedy and beam search for TS-Whisper decode.
 
-Mirrors the greedy half of the JAX package's ``decode/search.py``: the
-speaker-prompt prefix is prefilled once, then one token per step runs over
-the preallocated flat self cache (updated in place) and the cross K/V,
-quantized for the token loop when ``quantize_cross_kv`` is set. The loop
-runs eagerly; with ``stop_early`` it ends once every row emitted eot, which
-costs one device-to-host read per token.
+Mirrors the JAX package's ``decode/search.py``: the speaker-prompt prefix
+is prefilled once, then one token per step runs over the preallocated flat
+self cache (updated in place) and the cross K/V, quantized for the token
+loop when ``quantize_cross_kv`` is set. The loop runs eagerly; with
+``stop_early`` it ends once every row (every beam) emitted eot, which costs
+one device-to-host read per token.
 
-Beam search (``beam_size > 1``), speculative decode, timestamps, joint CTC
-and W8A8 step weights are later slices and raise ``NotImplementedError``.
+Beam search flattens (batch, beam) into the row axis, row ``i * k + j``
+for utterance ``i`` and beam ``j``. Each step reorders the self cache by
+the backpointers with the reorder kernel (``ops/beam_gather.py``), or,
+with ``defer_reorder``, reads the settled prefix through a per-row
+indirection and flushes the accumulated permutation every R steps. The
+quantized cross K/V stays at batch rows and the grouped cross kernel reads
+it once for all beams of an utterance. Scoring is the JAX package's:
+summed log-probs, finished beams frozen on eot at zero cost, ties in the
+top-k broken towards the lower flat index as ``jax.lax.top_k`` does.
+
+Speculative decode, timestamps, joint CTC and W8A8 step weights are later
+slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,6 +30,9 @@ import torch
 
 from .._device import resolve_device
 from ..models.ts_decoder import TSDecoder
+from ..ops.beam_gather import CHUNK, beam_reorder_cache
+
+NEG = -1e30  # score of a dead beam and of a masked token
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +86,9 @@ def length_bounds_static(cfg: DecodeConfig, enc_t: int) -> Tuple[int, int]:
     return max_new, min_new
 
 
-def _check_greedy(cfg: DecodeConfig) -> None:
+def _check_config(dec: TSDecoder, cfg: DecodeConfig) -> None:
+    """Raise for the paths outside this port, before anything runs."""
+    dec.check_self_cache()
     if cfg.speculative_gamma > 0:
         raise NotImplementedError("speculative decode is ROADMAP A11")
     if cfg.with_timestamps:
@@ -99,8 +114,8 @@ def build_greedy_decoder(
     tokens: (batch, max_new) int32, eot-padded after stop; scores: (batch,)
     summed log-probs of the emitted tokens (up to eot). Moves ``dec`` to
     ``device``."""
-    _check_greedy(cfg)
     dev = resolve_device(device)
+    _check_config(dec, cfg)
     dec.to(dev).eval()
 
     @torch.inference_mode()
@@ -148,13 +163,147 @@ def build_greedy_decoder(
     return run
 
 
+def top_k_stable(x: torch.Tensor, k: int):
+    """The k largest entries of each row of ``x``, ties in the order of the
+    lower index first, as ``jax.lax.top_k`` breaks them (``torch.topk``
+    promises no order among equal values). Returns (values, indices)."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
 def build_beam_decoder(
     dec: TSDecoder, cfg: DecodeConfig = DecodeConfig(), device="cuda"
-):
-    """Beam size 1 is the greedy decoder; wider beams are ROADMAP A9."""
-    if cfg.beam_size == 1:
+) -> Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
+    """Returns ``run(memory, spk_prompt) -> (tokens, scores)`` for
+    ``cfg.beam_size`` beams: the best hypothesis of each utterance, tokens
+    (batch, max_new) int32 eot-padded, scores (batch,) its summed
+    log-probs. Beam size 1 is the greedy decoder. Moves ``dec`` to
+    ``device``."""
+    k = cfg.beam_size
+    if k == 1:
         return build_greedy_decoder(dec, cfg, device)
-    raise NotImplementedError("beam search (beam_size > 1) is ROADMAP A9")
+    dev = resolve_device(device)
+    if cfg.beam_reorder not in ("auto", "dma", "take"):
+        raise ValueError(f"unknown beam_reorder {cfg.beam_reorder!r}")
+    # the flush period rounds up to whole 8-position reorder chunks
+    R = -(-cfg.defer_reorder // CHUNK) * CHUNK if cfg.defer_reorder > 0 else 0
+    if R:
+        try:
+            dec.check_self_cache()
+        except NotImplementedError as e:
+            raise ValueError(
+                "defer_reorder needs the dense flat self cache, which this "
+                f"decoder does not have: {e}"
+            ) from e
+    _check_config(dec, cfg)
+    dec.to(dev).eval()
+    vocab = dec.dims.n_vocab
+
+    @torch.inference_mode()
+    def run(memory: torch.Tensor, spk_prompt: torch.Tensor):
+        memory, spk_prompt = memory.to(dev), spk_prompt.to(dev)
+        b = memory.shape[0]
+        prompt_len = 1 + spk_prompt.shape[1] if dec.use_spk_prompt else 0
+        max_new, min_new = length_bounds(
+            cfg, memory, spk_prompt, dec.use_spk_prompt
+        )
+        base = prompt_len + len(cfg.init_tokens)
+        total = base + max_new
+        if R:  # the window [s0, s0 + R) always fits the cache
+            total += R
+
+        # prefill at plain batch rows: every beam starts from the same prefix
+        pq = cfg.prefill_quantized
+        cross = dec.cross_kv(memory, quantize=pq)
+        cache = dec.init_cache(b, total)
+        init = torch.tensor(cfg.init_tokens, dtype=torch.int64, device=dev)
+        logits, cache = dec.prefill(init[None, :].expand(b, -1), spk_prompt, cache, cross)
+        if cfg.quantize_cross_kv:
+            # stays at batch rows: the grouped kernel shares it across beams
+            if not pq:
+                cross = dec.quantize_cross(cross)
+            group = k
+        else:  # dense cross K/V is expanded across beams (stacked axis 1)
+            cross = tuple(x.repeat_interleave(k, dim=1) for x in cross)
+            group = 1
+        cache = tuple(x.repeat_interleave(k, dim=1) for x in cache)
+        logits = logits.repeat_interleave(k, dim=0)  # (b*k, vocab)
+        t_pad = cache[0].shape[2]
+
+        f32 = dict(dtype=torch.float32, device=dev)
+        # beam 0 live, the others dead, so step 0 picks k distinct tokens
+        scores = torch.full((b, k), NEG, **f32)
+        scores[:, 0] = 0.0
+        done = torch.zeros((b, k), dtype=torch.bool, device=dev)
+        lengths = torch.zeros((b, k), dtype=torch.int32, device=dev)
+        eot_only = torch.full((vocab,), NEG, **f32)
+        eot_only[cfg.eot] = 0.0
+        row0 = torch.arange(b, device=dev)[:, None] * k
+        identity = torch.arange(b * k, device=dev)
+        toks = torch.full((max_new, b, k), cfg.eot, dtype=torch.int32, device=dev)
+        backptr = torch.arange(k, device=dev).expand(max_new, b, k).clone()
+        pos = torch.tensor(base, dtype=torch.int32, device=dev)
+        # deferred reorder: [0, s0) stays in last-flush row order and is
+        # read through anc; s0 starts at the chunk boundary at or below the
+        # prefix end (the prefix is the same in every beam)
+        s0 = base - base % CHUNK
+        s0_dev = torch.tensor(s0, dtype=torch.int32, device=dev)
+        anc = identity
+
+        for i in range(max_new):
+            if i < min_new:
+                logits[:, cfg.eot] = NEG
+            logp = torch.log_softmax(logits, dim=-1).reshape(b, k, vocab)
+            logp = torch.where(done[..., None], eot_only, logp)
+            cand = (scores[..., None] + logp).reshape(b, k * vocab)
+            scores, top_idx = top_k_stable(cand, k)
+            src_beam = top_idx // vocab
+            tok = (top_idx % vocab).to(torch.int32)
+            toks[i] = tok
+            backptr[i] = src_beam
+            done_prev = done.gather(1, src_beam)
+            done = done_prev | (tok == cfg.eot)
+            # lengths follow the beam lineage
+            lengths = lengths.gather(1, src_beam) + (~done_prev).to(torch.int32)
+            if i + 1 == max_new or (cfg.stop_early and bool(done.all())):
+                break  # the next step's logits would go unused
+
+            gather_idx = (row0 + src_beam).reshape(-1)
+            step_kw = {}
+            if R:
+                anc = anc.index_select(0, gather_idx)  # compose permutations
+                for x in cache:  # the window holds logical rows
+                    x[:, :, s0:s0 + R] = x[:, :, s0:s0 + R].index_select(1, gather_idx)
+                if base + i - s0 >= R:  # flush the settled permutation
+                    if s0 > 0:  # the kernel's live chunks stop at s0
+                        beam_reorder_cache(cache, anc, live=s0, time_len=t_pad)
+                    anc = identity
+                    s0 += R
+                    s0_dev += R
+                step_kw = dict(row_map=anc, settled=s0_dev, defer_window=R)
+            elif cfg.beam_reorder == "take":  # the JAX package's XLA gather
+                cache = tuple(x.index_select(1, gather_idx) for x in cache)
+            else:  # positions [0, base + i) hold data
+                beam_reorder_cache(cache, gather_idx, live=base + i, time_len=t_pad)
+            logits, cache = dec.step(
+                tok.reshape(-1, 1), pos, cache, cross, beam_group=group, **step_kw
+            )
+            pos += 1
+
+        if cfg.length_penalty > 0.0:
+            norm = scores / lengths.float() ** cfg.length_penalty
+        else:
+            norm = scores
+        best = norm.argmax(dim=-1, keepdim=True)  # (b, 1)
+        best_scores = scores.gather(1, best)[:, 0]
+        out = torch.empty((b, max_new), dtype=torch.int32, device=dev)
+        beam = best
+        for t in range(max_new - 1, -1, -1):  # backtrace the lineage
+            out[:, t] = toks[t].gather(1, beam)[:, 0]
+            beam = backptr[t].gather(1, beam)
+        return out, best_scores
+
+    return run
 
 
 def strip_eot(tokens, eot: int) -> List[List[int]]:

@@ -74,6 +74,24 @@ class TSDecoder(nn.Module):
             x_emb = tok_emb
         return self.decoder.prefill(x_emb, cache, cross)
 
-    def step(self, token: torch.Tensor, pos: torch.Tensor, cache, cross):
+    def check_self_cache(self) -> None:
+        """Raise unless the self cache is the dense flat one of this port."""
+        self.decoder._check_flat()
+
+    def step(
+        self,
+        token: torch.Tensor,
+        pos: torch.Tensor,
+        cache,
+        cross,
+        beam_group: int = 1,  # beams per utterance sharing quantized cross
+        row_map=None,  # deferred beam reorder: physical row per logical row
+        settled=None,  # deferred beam reorder: settled-prefix length
+        defer_window: int = 8,
+    ):
         """token: (batch, 1) ids; pos: device int32 scalar position."""
-        return self.decoder.step(self.decoder.embed(token), pos, cache, cross)
+        return self.decoder.step(
+            self.decoder.embed(token), pos, cache, cross,
+            beam_group=beam_group, row_map=row_map, settled=settled,
+            defer_window=defer_window,
+        )

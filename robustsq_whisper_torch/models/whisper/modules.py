@@ -1,4 +1,5 @@
-"""Whisper encoder and decoder as PyTorch modules, for greedy serving.
+"""Whisper encoder and decoder as PyTorch modules, for greedy and beam
+serving.
 
 Mirrors the JAX package's ``models/whisper/modules.py``: pre-LN residual
 attention blocks, GELU MLPs, sinusoidal audio positions, learned text
@@ -11,12 +12,16 @@ tensors can be fed to both:
 - cross K/V: dense (layers, b, T, heads, hd), or the quantized 6-tuple
   (k_q, k_s, v_q, v_s, v_zp, kv_len) with K/V transposed to
   (layers, b, heads, hd[/2], T_pad);
-- self K/V: the flat (layers, b, T_pad, n_state) cache.
+- self K/V: the flat (layers, b, T_pad, n_state) cache;
+- beam search: the decode rows are (batch, beam) flattened, row ``i * k +
+  j`` for utterance ``i`` and beam ``j``; the quantized cross K/V stays at
+  batch rows and ``beam_group=k`` lets each utterance's beams share it;
+  the deferred beam reorder reads the settled prefix through ``row_map``.
 
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
 item): the 5-D and time-minor self caches, the int8 self cache, W8A8 step
-weights, beam-grouped cross attention, the deferred beam reorder and the
-row-major flash route (``use_flash`` without ``flash_tmaj``).
+weights and the row-major flash route (``use_flash`` without
+``flash_tmaj``).
 """
 
 from __future__ import annotations
@@ -34,7 +39,11 @@ from ...ops.decode_attention import (
     unpack_int4,
 )
 from ...ops.flash_attention import flash_attention_tmaj
-from ...ops.self_attention import BLOCK_POS, decode_self_attention
+from ...ops.self_attention import (
+    BLOCK_POS,
+    decode_self_attention,
+    deferred_self_attention,
+)
 from .config import WhisperDims, sinusoids
 
 Cache = Tuple[torch.Tensor, ...]
@@ -150,16 +159,30 @@ class MultiHeadAttention(nn.Module):
         v_zp: torch.Tensor,
         kv_len: torch.Tensor,  # int32 scalar
         layer_idx: Optional[torch.Tensor] = None,
+        beam_group: int = 1,  # beams per utterance sharing this K/V
     ) -> torch.Tensor:
         """Cross attention over the quantized K/V: the decode kernel at
-        q_len 1, a plain einsum over unpacked K/V for a prefill."""
+        q_len 1, a plain einsum over unpacked K/V for a prefill.
+
+        ``beam_group=k``: x has batch*k beam-flattened rows while the K/V
+        keep batch rows, and each utterance's k beams attend one shared
+        K/V read (the kernel's grouped mode)."""
         q = self._split(self.query(x))  # (b, q, h, hd)
         dt = self.dtype
         if x.shape[1] == 1:
+            g = beam_group
+            q1 = q[:, 0]  # (b*g, h, hd)
+            if g > 1:
+                bk, h, hd = q1.shape
+                q1 = q1.reshape(bk // g, g, h, hd).transpose(1, 2)
             o = decode_cross_attention(
-                q[:, 0], k_q, v_q, k_s, kv_len=kv_len, layer_idx=layer_idx,
-                packed_int4=self.kv_bits == 4,
-            )  # (b, h, hd); v_s / v_zp applied here
+                q1, k_q, v_q, k_s, kv_len=kv_len, layer_idx=layer_idx,
+                packed_int4=self.kv_bits == 4, group=g,
+            )  # (b, h, hd) or (b, h, g, hd); v_s / v_zp applied here
+            if g > 1:
+                o = o.transpose(1, 2).float() * v_s[:, None] + v_zp[:, None]
+                o = o.reshape(-1, 1, *o.shape[2:])  # (b*g, 1, h, hd)
+                return self.out(self._merge(o.to(dt)))
             o = o.float() * v_s + v_zp
             return self.out(self._merge(o[:, None].to(dt)))
         if layer_idx is not None:
@@ -275,12 +298,12 @@ class ResidualAttentionBlock(nn.Module):
 
     def _cross(
         self, x: torch.Tensor, cross: CrossKV,
-        layer_idx: Optional[torch.Tensor] = None,
+        layer_idx: Optional[torch.Tensor] = None, beam_group: int = 1,
     ) -> torch.Tensor:
         h = self._cast(self.cross_attn_ln(x))
         if len(cross) == 6:  # quantized transposed cross K/V
             return x + self.cross_attn.attend_quant(
-                h, *cross, layer_idx=layer_idx
+                h, *cross, layer_idx=layer_idx, beam_group=beam_group
             )
         return x + self.cross_attn.attend(h, *cross)
 
@@ -305,15 +328,27 @@ class ResidualAttentionBlock(nn.Module):
         pos: torch.Tensor,  # device int32 scalar
         pos_index: torch.Tensor,  # (1,) int64 copy of pos, for the write
         cross: CrossKV,
+        beam_group: int = 1,
+        row_map: Optional[torch.Tensor] = None,
+        settled: Optional[torch.Tensor] = None,
+        defer_window: int = 8,
     ) -> torch.Tensor:
-        """One decode token through the block, over the flat cache."""
+        """One decode token through the block, over the flat cache; with
+        ``row_map`` the deferred-beam-reorder read (settled prefix through
+        the row indirection, the window and the new token merged)."""
         h = self._cast(self.attn_ln(x))
         kf = self.attn.key(h)[:, 0]
         vf = self.attn.value(h)[:, 0]
         qf = self.attn.query(h)[:, 0]
-        o = decode_self_attention(
-            qf, kf, vf, cache, pos, layer_idx, heads=self.n_head
-        )
+        if row_map is not None:
+            o = deferred_self_attention(
+                qf, kf, vf, cache, pos, settled, row_map, layer_idx,
+                heads=self.n_head, window=defer_window,
+            )
+        else:
+            o = decode_self_attention(
+                qf, kf, vf, cache, pos, layer_idx, heads=self.n_head
+            )
         # The new row goes into the cache in place, right after this layer's
         # read: the kernel reads only [0, pos) and merges the new token from
         # its own operands, so this equals the JAX package's single write of
@@ -322,7 +357,8 @@ class ResidualAttentionBlock(nn.Module):
             buf[layer].index_copy_(1, pos_index, new[:, None])
         x = x + self.attn.out(o[:, None])
         x = self._cross(
-            x, cross, layer_idx=layer_idx if len(cross) == 6 else None
+            x, cross, layer_idx=layer_idx if len(cross) == 6 else None,
+            beam_group=beam_group,
         )
         return x + self._mlp(self._cast(self.mlp_ln(x)))
 
@@ -515,13 +551,28 @@ class TextDecoder(nn.Module):
         pos: torch.Tensor,  # device int32 scalar
         cache: Cache,
         cross: CrossKV,
+        beam_group: int = 1,
+        row_map: Optional[torch.Tensor] = None,
+        settled: Optional[torch.Tensor] = None,
+        defer_window: int = 8,
     ):
         """One decode step over the flat cache, which is updated in place.
-        Returns the f32 logits (batch, n_vocab) and the cache."""
+        Returns the f32 logits (batch, n_vocab) and the cache.
+
+        ``beam_group=k``: token_emb and the cache carry batch*k
+        beam-flattened rows while the quantized ``cross`` keeps batch rows
+        (``attend_quant``). ``row_map``, ``settled`` and ``defer_window``
+        select the deferred-beam-reorder read of the self cache
+        (``deferred_self_attention``)."""
         self._check_flat()
         if token_emb.shape[1] != 1:
             raise NotImplementedError(
                 "multi-token steps are speculative decode, ROADMAP A11"
+            )
+        if beam_group != 1 and len(cross) != 6:
+            raise ValueError(
+                "beam grouping needs the quantized cross-KV layout; expand "
+                "the dense cross K/V across beams instead"
             )
         pos_index = pos.reshape(1).long()
         x = (
@@ -535,7 +586,9 @@ class TextDecoder(nn.Module):
             else:
                 cross_i = self._layer_cross(cross, i)
             x = block.step_flat(
-                x, cache, i, self.layer_ids[i], pos, pos_index, cross_i
+                x, cache, i, self.layer_ids[i], pos, pos_index, cross_i,
+                beam_group=beam_group, row_map=row_map, settled=settled,
+                defer_window=defer_window,
             )
         x = self.ln(x).to(self.dtype)
         return self.logits(x)[:, 0], cache

@@ -25,6 +25,8 @@ KERNELS = (
     "flash_attention_tmaj",
     "decode_cross_attention",
     "decode_self_attention",
+    "beam_reorder_cache",
+    "settled_self_attention",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,8 +38,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # pointers and the stream as void*, sizes and modes as int
 SIGNATURES = {
     "flash_attention_tmaj": [_P] * 4 + [_I] * 4 + [_P],
-    "decode_cross_attention": [_P] * 6 + [_I] * 5 + [_P],
+    "decode_cross_attention": [_P] * 6 + [_I] * 6 + [_P],
     "decode_self_attention": [_P] * 8 + [_I] * 5 + [_P],
+    "beam_reorder_cache": [_P] * 3 + [_I] * 6 + [_P],
+    "settled_self_attention": [_P] * 9 + [_I] * 6 + [_P],
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -3,14 +3,21 @@
 ``decode_cross_attention`` launches the hand-written CUDA kernel
 (``csrc/decode_cross_attention.cu``) for CUDA tensors and runs the plain
 version for CPU tensors. The contract is the JAX package's
-``decode_cross_attention`` with group 1:
+``decode_cross_attention``:
 
 - K/V ride transposed as (batch, heads, d, T) or stacked per layer as
   (layers, batch, heads, d, T) with ``layer_idx`` choosing the slab;
 - ``packed_int4`` stores two channels a byte along head_dim (``pack_int4``);
 - q is scaled by ``d**-0.5 * k_scale`` here, outside the kernel; positions
   at or past ``kv_len`` are masked; ``v_scale`` multiplies the output and
-  the caller adds the V zero-point.
+  the caller adds the V zero-point;
+- ``group > 1`` (beam search): q is (batch, heads, group, d), the group's
+  beams share their utterance's K/V, one read for all of them, and the
+  output is (batch, heads, group, d); the scales fold as in group 1, with
+  ``k_scale[:, :, None]`` and ``v_scale[:, :, None]``.
+
+The wrapper counts kernel launches with group 1 in ``launches`` and those
+with group > 1 in ``grouped_launches``.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from . import _build
 
 _MODES = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 3}
 PACKED_INT4_MODE = 0
+MAX_GROUP = 8  # queries one kernel block serves
+MAX_SCORES = 49152  # group * T_pad scores a block keeps in shared memory
 
 
 def pack_int4(q4: torch.Tensor) -> torch.Tensor:
@@ -50,29 +59,29 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
 
 
 def decode_cross_attention_plain(
-    qs: torch.Tensor,  # (batch, heads, d) f32, already scaled
+    qs: torch.Tensor,  # (batch, heads, group, d) f32, already scaled
     kt: torch.Tensor,
     vt: torch.Tensor,
     kv_len,
     layer_idx=None,
     packed_int4: bool = False,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: (batch, heads, d) f32."""
+    """Plain PyTorch version of the kernel: (batch, heads, group, d) f32."""
     if layer_idx is not None:
         kt, vt = kt[int(layer_idx)], vt[int(layer_idx)]
     if packed_int4:
         kt, vt = unpack_int4(kt), unpack_int4(vt)
-    s = torch.einsum("bhd,bhdt->bht", qs, kt.float())
+    s = torch.einsum("bhgd,bhdt->bhgt", qs, kt.float())
     live = torch.arange(kt.shape[-1], device=qs.device) < torch.as_tensor(
         kv_len, device=qs.device
     )
     s = s.masked_fill(~live, float("-inf"))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bht,bhdt->bhd", p, vt.float())
+    return torch.einsum("bhgt,bhdt->bhgd", p, vt.float())
 
 
 def decode_cross_attention(
-    q: torch.Tensor,  # (batch, heads, head_dim)
+    q: torch.Tensor,  # (batch, heads, head_dim); (b, heads, group, hd) if group > 1
     kt: torch.Tensor,  # ([layers,] batch, heads, head_dim[/2], T)
     vt: torch.Tensor,
     k_scale: Optional[torch.Tensor] = None,  # (batch, heads, head_dim)
@@ -80,10 +89,16 @@ def decode_cross_attention(
     kv_len=None,  # int32 scalar: true length <= T
     layer_idx=None,  # int32 scalar: slab of stacked kt/vt
     packed_int4: bool = False,
+    group: int = 1,  # beam queries per K/V row
 ) -> torch.Tensor:
-    """softmax(q . K / sqrt(d)) @ V for one query position; returns
-    (batch, heads, head_dim) in q.dtype."""
-    b, h, d = q.shape
+    """softmax(q . K / sqrt(d)) @ V for one query position; returns q's
+    shape in q.dtype."""
+    if group > 1:
+        b, h, gq, d = q.shape
+        if gq != group:
+            raise ValueError(f"q {tuple(q.shape)} does not hold group {group}")
+    else:
+        b, h, d = q.shape
     stacked = kt.dim() == 5
     if stacked != (layer_idx is not None):
         raise ValueError("layer_idx is given exactly when kt/vt are stacked")
@@ -91,9 +106,10 @@ def decode_cross_attention(
         raise ValueError(f"bad K/V shapes {kt.shape}, {vt.shape} for d={d}")
     if tuple(kt.shape[-4:-2]) != (b, h):
         raise ValueError(f"K/V {kt.shape} do not match q {q.shape}")
-    qs = q.float() * (d**-0.5)
+    q4 = q if group > 1 else q[:, :, None]  # (b, h, g, d)
+    qs = q4.float() * (d**-0.5)
     if k_scale is not None:
-        qs = qs * k_scale.float()
+        qs = qs * k_scale.float()[:, :, None]
     if kv_len is None:
         kv_len = kt.shape[-1]
 
@@ -107,11 +123,13 @@ def decode_cross_attention(
         raise ValueError(f"unsupported device {q.device}")
     out = out.to(q.dtype)
     if v_scale is not None:
-        out = (out.float() * v_scale.float()).to(q.dtype)
-    return out
+        out = (out.float() * v_scale.float()[:, :, None]).to(q.dtype)
+    return out if group > 1 else out[:, :, 0]
 
 
 def _launch(qs, kt, vt, kv_len, layer_idx, packed_int4):
+    """The kernel on (b, h, g, d) f32 queries; a group wider than one
+    block serves runs as several launches, each reading K/V once."""
     dev = qs.device
     if packed_int4:
         if kt.dtype != torch.int8:
@@ -131,19 +149,31 @@ def _launch(qs, kt, vt, kv_len, layer_idx, packed_int4):
     pad = (-kt.shape[-1]) % 4
     if pad:  # the kernel reads 4 positions at a time; masking covers the pad
         kt, vt = F.pad(kt, (0, pad)), F.pad(vt, (0, pad))
+    t_pad = kt.shape[-1]
+    per_launch = min(MAX_GROUP, MAX_SCORES // t_pad)
+    if per_launch < 1:
+        raise ValueError(f"T_pad {t_pad} exceeds the kernel's {MAX_SCORES}")
     kv = _build.device_scalar(kv_len, dev)
     li = None if layer_idx is None else _build.device_scalar(layer_idx, dev)
-    b, h, d = qs.shape
-    qs = qs.contiguous()
-    out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
-    err = _build.load("decode_cross_attention")(
-        qs.data_ptr(), kt.data_ptr(), vt.data_ptr(),
-        None if li is None else li.data_ptr(), kv.data_ptr(), out.data_ptr(),
-        b, h, d, kt.shape[-1], mode, _build.stream_ptr(dev),
-    )
-    _build.check(err, "decode_cross_attention")
-    decode_cross_attention.launches += 1
-    return out
+    b, h, group, d = qs.shape
+    outs = []
+    for g0 in range(0, group, per_launch):
+        q_part = qs[:, :, g0:g0 + per_launch].contiguous()
+        g = q_part.shape[2]
+        out = torch.empty((b, h, g, d), dtype=torch.float32, device=dev)
+        err = _build.load("decode_cross_attention")(
+            q_part.data_ptr(), kt.data_ptr(), vt.data_ptr(),
+            None if li is None else li.data_ptr(), kv.data_ptr(),
+            out.data_ptr(), b, h, d, t_pad, g, mode, _build.stream_ptr(dev),
+        )
+        _build.check(err, "decode_cross_attention")
+        if group > 1:
+            decode_cross_attention.grouped_launches += 1
+        else:
+            decode_cross_attention.launches += 1
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
 
 
 decode_cross_attention.launches = 0
+decode_cross_attention.grouped_launches = 0

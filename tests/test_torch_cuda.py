@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from robustsq_whisper_torch.ops import beam_gather as tbg
 from robustsq_whisper_torch.ops import decode_attention as tdec
 from robustsq_whisper_torch.ops import flash_attention as tflash
 from robustsq_whisper_torch.ops import self_attention as tself
@@ -118,6 +119,118 @@ def test_decode_self_kernel_matches_plain(cuda, pos, dtype):
     torch.testing.assert_close(got.float(), ref.float(), **tol)
     if pos == 0:
         assert torch.equal(got, vn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [3, 5, 10])  # 10: two launches of 8 and 2
+@pytest.mark.parametrize("mode", ["int4", "int8", "fp"])
+def test_grouped_decode_cross_kernel_matches_plain(cuda, mode, group):
+    q, k_s, kt, vt = _cross_inputs(group, mode)
+    q = np.stack([q * (1.0 + 0.1 * j) for j in range(group)], axis=2)
+    args = [torch.from_numpy(x).to(cuda) for x in (q, kt, vt, k_s)]
+    kw = dict(packed_int4=mode == "int4", group=group)
+    n = tdec.decode_cross_attention.grouped_launches
+    got = tdec.decode_cross_attention(*args, kv_len=1516, layer_idx=2, **kw)
+    torch.cuda.synchronize()
+    assert tdec.decode_cross_attention.grouped_launches == n + (2 if group > 8 else 1)
+    ref = tdec.decode_cross_attention(
+        *[a.cpu() for a in args], kv_len=1516, layer_idx=2, **kw
+    )
+    assert got.shape == ref.shape == q.shape
+    torch.testing.assert_close(got.cpu(), ref, **F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", [0, 9, 40])
+@pytest.mark.parametrize(
+    "src", [[3, 0, 0, 5, 2, 1], [5, 4, 3, 2, 1, 0], list(range(319, -1, -1))]
+)
+def test_beam_reorder_kernel_matches_plain(cuda, live, src):
+    """A bf16 K/V pair (one launch) and an int8 and an f32 leaf, every
+    position non-zero: the live chunks are permuted exactly, the tail kept.
+    320 rows tile the row payload into slices of several blocks."""
+    rows = len(src)
+    g = torch.Generator(device=cuda).manual_seed(live)
+    shape = (3, rows, 40, 256)
+    leaves = [
+        torch.randn(shape, generator=g, device=cuda).bfloat16(),
+        torch.randn(shape, generator=g, device=cuda).bfloat16(),
+        torch.randint(-128, 128, shape, generator=g, device=cuda).to(torch.int8),
+        torch.randn(shape, generator=g, device=cuda),
+    ]
+    before = [x.cpu() for x in leaves]
+    src_rows = torch.tensor(src, dtype=torch.int32)
+    n = tbg.beam_reorder_cache.launches
+    out = tbg.beam_reorder_cache(leaves, src_rows.to(cuda), live=live, time_len=40)
+    torch.cuda.synchronize()
+    assert tbg.beam_reorder_cache.launches == n + 3
+    assert all(o is x for o, x in zip(out, leaves))  # in place
+    ref = tbg.beam_reorder_cache(
+        [x.clone() for x in before], src_rows, live=live, time_len=40
+    )
+    p = tbg.live_positions(live, 40)
+    for o, r, x in zip(out, ref, before):
+        assert torch.equal(o.cpu(), r)
+        assert torch.equal(r[:, :, p:], x[:, :, p:])  # the tail is kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("settled", [0, 5, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_settled_kernel_matches_plain(cuda, settled, dtype):
+    rng = np.random.default_rng(settled)
+    rows, layers, t_pad, n_state = 20, 2, 56, 1024
+    q = torch.from_numpy(rng.standard_normal((rows, n_state), np.float32))
+    kc, vc = (
+        torch.from_numpy(rng.standard_normal((layers, rows, t_pad, n_state), np.float32))
+        for _ in range(2)
+    )
+    row_map = torch.from_numpy(rng.permutation(rows))
+    args = [t.to(cuda, dtype) for t in (q, kc, vc)]
+    n = tself.settled_self_attention.launches
+    got = tself.settled_self_attention(
+        args[0], tuple(args[1:]), settled, 1, row_map.to(cuda), heads=16
+    )
+    torch.cuda.synchronize()
+    assert tself.settled_self_attention.launches == n + 1
+    ref = tself.settled_self_attention_plain(
+        *[a.cpu() for a in args[:1]], tuple(a.cpu() for a in args[1:]),
+        settled, 1, row_map, 16,
+    )
+    for g_, r in zip(got, ref):  # f32 state from the same (rounded) inputs
+        torch.testing.assert_close(g_.cpu(), r, rtol=1e-3, atol=1e-3)
+    if settled == 0:
+        assert (got[0] == -1e30).all() and not got[1].any() and not got[2].any()
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
+    """On CUDA tensors each wrapper launches its kernel: with every plain
+    version made to raise, the calls still succeed."""
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for mod, name in (
+        (tflash, "flash_attention_tmaj_plain"),
+        (tdec, "decode_cross_attention_plain"),
+        (tself, "decode_self_attention_plain"),
+        (tself, "settled_self_attention_plain"),
+        (tbg, "beam_reorder_cache_plain"),
+    ):
+        monkeypatch.setattr(mod, name, refuse)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    tflash.flash_attention_tmaj(rnd(2, 64, 256), rnd(2, 64, 256), rnd(2, 64, 256))
+    kt = torch.zeros((2, 2, 32, 512), dtype=torch.int8, device=cuda)
+    for group, q in ((1, rnd(2, 2, 64)), (3, rnd(2, 2, 3, 64))):
+        tdec.decode_cross_attention(q, kt, kt, kv_len=300, packed_int4=True, group=group)
+    q, kc = rnd(6, 128), rnd(2, 6, 16, 128)
+    tself.decode_self_attention(q, q, q, (kc, kc), 5, 1, heads=2)
+    rm = torch.arange(6, device=cuda)
+    tself.settled_self_attention(q, (kc, kc), 8, 1, rm, heads=2)
+    tself.deferred_self_attention(q, q, q, (kc, kc), 10, 8, rm, 1, heads=2, window=8)
+    tbg.beam_reorder_cache((kc, kc), rm.flip(0), live=9, time_len=16)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -2,11 +2,11 @@
 
 Greedy decode must give the JAX decoder's tokens exactly, for both
 ``prefill_quantized`` settings, and ``TranscriptionEngine.transcribe`` the
-JAX engine's strings, from the same weights (flax init, converted) and the
-same numpy inputs, on the CPU (JAX runs its Pallas kernels in interpret
-mode, the port the kernels' plain versions). The seeds give top-2 logit
-margins far above the f32 noise of the two sides, so the tokens can be
-compared exactly.
+JAX engine's strings, greedy and with beam 3, from the same weights (flax
+init, converted) and the same numpy inputs, on the CPU (JAX runs its
+Pallas kernels in interpret mode, the port the kernels' plain versions).
+The seeds give top-2 logit margins far above the f32 noise of the two
+sides, so the tokens can be compared exactly.
 """
 
 import numpy as np
@@ -83,7 +83,8 @@ def test_greedy_tokens_identical_to_jax(decoders, prefill_quantized):
     np.testing.assert_allclose(t_score.numpy(), np.asarray(j_score), rtol=1e-4, atol=1e-4)
 
 
-def test_engine_transcribes_like_jax(decoders):
+def _engine_strings(decoders, dcfg):
+    """(JAX strings, port strings) of one batch through both engines."""
     jdec, dvars, tdec = decoders
     jenc = JEnc(JDims(**DIMS), JTS(**TS))
     mel = jnp.zeros((1, 80, 20), jnp.float32)
@@ -94,11 +95,11 @@ def test_engine_transcribes_like_jax(decoders):
     # 5.12 s of speech = 512 mel frames = the model's 256 encoder positions
     ecfg = dict(batch_size=2, speech_seconds=5.12, enroll_seconds=0.75)
     j_engine = JEngine(
-        jenc, evars, jdec, dvars, JByte(), JDecodeConfig(**DCFG),
+        jenc, evars, jdec, dvars, JByte(), JDecodeConfig(**dcfg),
         JEngineConfig(**ecfg),
     )
     t_engine = TranscriptionEngine(
-        tenc, tdec, ByteTokenizer(), DecodeConfig(**DCFG), EngineConfig(**ecfg),
+        tenc, tdec, ByteTokenizer(), DecodeConfig(**dcfg), EngineConfig(**ecfg),
         device="cpu",
     )
     rng = np.random.default_rng(8)
@@ -107,7 +108,18 @@ def test_engine_transcribes_like_jax(decoders):
          (rng.standard_normal(m) * 0.1).astype(np.float32))
         for n, m in ((80000, 12000), (30000, 9000))
     ]
-    ref = j_engine.transcribe(items)
-    got = t_engine.transcribe(items)
+    return j_engine.transcribe(items), t_engine.transcribe(items)
+
+
+def test_engine_transcribes_like_jax(decoders):
+    ref, got = _engine_strings(decoders, DCFG)
     assert got == ref
     assert any(ref)  # the byte tokenizer decoded something
+
+
+def test_beam_engine_transcribes_like_jax(decoders):
+    """Beam 3 through the engine: the decoder returns the best beam of
+    each utterance, so the engine's strings are the JAX engine's."""
+    ref, got = _engine_strings(decoders, dict(DCFG, beam_size=3))
+    assert got == ref
+    assert any(ref)

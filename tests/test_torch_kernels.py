@@ -1,4 +1,4 @@
-"""The port's three main-path kernels against the JAX functions.
+"""The port's kernels and the deferred-read merge against the JAX functions.
 
 On the CPU each port wrapper runs its plain PyTorch version, and the JAX
 function runs its Pallas kernel in interpret mode (``interpret=True``), so
@@ -16,11 +16,16 @@ import torch
 
 import jax.numpy as jnp
 
+import jax
+
 from robustsq_whisper_tpu.ops import attention as jatt
+from robustsq_whisper_tpu.ops import beam_gather as jbg
 from robustsq_whisper_tpu.ops import decode_attention as jdec
 from robustsq_whisper_tpu.ops import flash_attention as jflash
 from robustsq_whisper_tpu.ops import self_attention as jself
+from robustsq_whisper_torch.decode.search import top_k_stable
 from robustsq_whisper_torch.ops import attention as tatt
+from robustsq_whisper_torch.ops import beam_gather as tbg
 from robustsq_whisper_torch.ops import decode_attention as tdec
 from robustsq_whisper_torch.ops import flash_attention as tflash
 from robustsq_whisper_torch.ops import self_attention as tself
@@ -158,3 +163,130 @@ def test_int8_flat_cache_raises():
     q, kn, vn, kc, vc = map(torch.from_numpy, _self_inputs(0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tself.decode_self_attention(q, kn, vn, (kc, vc, kc), 1, 0, heads=2)
+
+
+@pytest.mark.parametrize(
+    "mode,stacked", [("int4", True), ("int8", False), ("fp", True)]
+)
+def test_grouped_decode_cross_plain_matches_jax(mode, stacked):
+    """group 3: each utterance's three beam queries share one K/V; both
+    scales fold as (b, h, 1, d)."""
+    g = 3
+    q, k_s, kt, vt = _cross_inputs(11, mode)
+    q = np.stack([q * (1.0 + 0.1 * j) for j in range(g)], axis=2)  # (b, h, g, d)
+    v_s = _rng(12).uniform(0.5, 1.5, k_s.shape).astype(np.float32)
+    kw = dict(kv_len=301, packed_int4=mode == "int4", group=g)
+    if not stacked:
+        kt, vt = kt[1], vt[1]
+    layer = dict(layer_idx=1) if stacked else {}
+    ref = jdec.decode_cross_attention(
+        *map(jnp.asarray, (q, kt, vt, k_s, v_s)),
+        **{a: jnp.int32(x) for a, x in dict(kv_len=301, **layer).items()},
+        packed_int4=mode == "int4", group=g, interpret=True,
+    )
+    got = tdec.decode_cross_attention(
+        *map(torch.from_numpy, (q, kt, vt, k_s, v_s)),
+        **{a: torch.tensor(x, dtype=torch.int32) for a, x in layer.items()},
+        **kw,
+    )
+    assert tuple(got.shape) == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+SRC_ROWS = {
+    "repeats_and_cycles": [3, 0, 0, 5, 2, 1],
+    "reversal": [5, 4, 3, 2, 1, 0],
+}
+
+
+@pytest.mark.parametrize("live", [0, 1, 17, 24])
+@pytest.mark.parametrize("src", sorted(SRC_ROWS))
+def test_beam_reorder_plain_matches_jax(live, src):
+    """4-D leaves (layers, rows, T, n_state) of three types, every position
+    non-zero: the live 8-chunks (at least one) are permuted, the tail is
+    kept as it was. Exact."""
+    rng = _rng(live)
+    shape = (2, 6, 24, 128)
+    f = rng.standard_normal(shape).astype(np.float32)
+    i8 = rng.integers(-127, 128, shape).astype(np.int8)
+    src_rows = np.array(SRC_ROWS[src], np.int32)
+    ref = jbg.beam_reorder_cache(
+        [jnp.asarray(f), jnp.asarray(f, jnp.bfloat16), jnp.asarray(i8)],
+        jnp.asarray(src_rows), live=jnp.int32(live), time_len=24,
+        interpret=True,
+    )
+    leaves = (
+        torch.from_numpy(f.copy()),
+        torch.from_numpy(f).bfloat16(),
+        torch.from_numpy(i8.copy()),
+    )
+    got = tbg.beam_reorder_cache(
+        leaves, torch.from_numpy(src_rows), live=live, time_len=24
+    )
+    assert all(g is x for g, x in zip(got, leaves))  # in place
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.float().numpy(), np.asarray(r, np.float32))
+    p = tbg.live_positions(live, 24)
+    assert p == {0: 8, 1: 8, 17: 24, 24: 24}[live]
+    np.testing.assert_array_equal(got[0][:, :, p:].numpy(), f[:, :, p:])
+
+
+def _deferred_inputs(seed, layers=2, rows=6, t_pad=32, heads=2, n_state=128):
+    rng = _rng(seed)
+    q, kn, vn = (rng.standard_normal((rows, n_state), np.float32) for _ in range(3))
+    kc, vc = (
+        rng.standard_normal((layers, rows, t_pad, n_state), np.float32)
+        for _ in range(2)
+    )
+    row_map = rng.permutation(rows).astype(np.int32)
+    return q, kn, vn, kc, vc, row_map
+
+
+@pytest.mark.parametrize("settled", [5, 16, 32])
+def test_settled_self_plain_matches_jax(settled):
+    """Raw (m, l, acc) over [0, settled) of physical row row_map[i]."""
+    q, _, _, kc, vc, row_map = _deferred_inputs(settled)
+    ref = jself.settled_self_attention(
+        jnp.asarray(q), (jnp.asarray(kc), jnp.asarray(vc)), jnp.int32(settled),
+        jnp.int32(1), jnp.asarray(row_map), heads=2, interpret=True,
+    )
+    t = torch.from_numpy
+    got = tself.settled_self_attention(
+        t(q), (t(kc), t(vc)), torch.tensor(settled, dtype=torch.int32),
+        torch.tensor(1, dtype=torch.int32), t(row_map), heads=2,
+    )
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
+
+
+@pytest.mark.parametrize("settled,pos", [(0, 3), (8, 8), (8, 13), (16, 23)])
+def test_deferred_self_attention_matches_jax(settled, pos):
+    """Settled state, window state and new token merged; settled = 0 (the
+    settled state weighs nothing) and an empty window (pos == settled)
+    included."""
+    q, kn, vn, kc, vc, row_map = _deferred_inputs(pos)
+    window = 8
+    ref = jself.deferred_self_attention(
+        *map(jnp.asarray, (q, kn, vn)), (jnp.asarray(kc), jnp.asarray(vc)),
+        jnp.int32(pos), jnp.int32(settled), jnp.asarray(row_map), jnp.int32(1),
+        heads=2, window=window, interpret=True,
+    )
+    t, i32 = torch.from_numpy, lambda x: torch.tensor(x, dtype=torch.int32)
+    got = tself.deferred_self_attention(
+        t(q), t(kn), t(vn), (t(kc), t(vc)), i32(pos), i32(settled), t(row_map),
+        i32(1), heads=2, window=window,
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_top_k_ties_break_as_jax(seed):
+    """Rows full of equal values (and -1e30 dead-beam scores): the chosen
+    indices are jax.lax.top_k's, the lower flat index first."""
+    rng = _rng(seed)
+    x = rng.integers(0, 4, (3, 40)).astype(np.float32)
+    x[:, ::5] = -1e30
+    ref_v, ref_i = jax.lax.top_k(jnp.asarray(x), 5)
+    got_v, got_i = top_k_stable(torch.from_numpy(x), 5)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(ref_v))

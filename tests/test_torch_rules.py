@@ -9,7 +9,11 @@ import sys
 import pytest
 import torch
 
-from robustsq_whisper_torch.decode.search import DecodeConfig, build_greedy_decoder
+from robustsq_whisper_torch.decode.search import (
+    DecodeConfig,
+    build_beam_decoder,
+    build_greedy_decoder,
+)
 from robustsq_whisper_torch.models import QFormerTSEncoder, TSDecoder
 from robustsq_whisper_torch.models import TSEncoderConfig, WhisperDims
 from robustsq_whisper_torch.serve import TranscriptionEngine
@@ -61,6 +65,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_greedy_decoder(TSDecoder(dims), DecodeConfig())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_beam_decoder(TSDecoder(dims), DecodeConfig(beam_size=4))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         TranscriptionEngine(
             QFormerTSEncoder(dims, TSEncoderConfig(num_hidden_layers=1)),
             TSDecoder(dims), ByteTokenizer(), DecodeConfig(),
@@ -70,19 +76,22 @@ def test_default_device_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize(
     "change",
     [
-        dict(beam_size=4), dict(speculative_gamma=4), dict(with_timestamps=True),
-        dict(ctc_decode_weight=0.3), dict(quantize_weights=True),
+        dict(beam_size=4, self_kv_bits=8), dict(speculative_gamma=4),
+        dict(with_timestamps=True), dict(ctc_decode_weight=0.3),
+        dict(quantize_weights=True),
     ],
 )
 def test_paths_outside_the_slice_raise(change):
     """Paths of later slices raise NotImplementedError naming their ROADMAP
-    item; none runs a silent substitute."""
+    item when the engine is built; none runs a silent substitute."""
+    change = dict(change)
+    dec_kw = {"self_kv_bits": change.pop("self_kv_bits")} if "self_kv_bits" in change else {}
     dims = WhisperDims(n_text_state=128, n_text_head=2, n_text_layer=1, n_vocab=50)
     enc = QFormerTSEncoder(dims, TSEncoderConfig(num_hidden_layers=1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TranscriptionEngine(
-            enc, TSDecoder(dims), ByteTokenizer(), DecodeConfig(**change),
-            device="cpu",
+            enc, TSDecoder(dims, **dec_kw), ByteTokenizer(),
+            DecodeConfig(**change), device="cpu",
         )
 
 
