@@ -24,15 +24,28 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    eager reorder and with ``defer_reorder=8``. Every kernel's launch count
    is set to 0 just before each run, and each kernel of that run's path
    must show > 0 after it. A phase-timed greedy pass prints frontend,
-   encode, cross-KV + prefill and token-loop times; the profiler reads the
-   device's busy share of the encode, the greedy run and both beam runs.
+   encode, cross-KV + prefill and token-loop times;
+5. training: the three flash-attention training kernels (forward, dQ,
+   dK/dV) against their plain versions at the medium training shape
+   (batch 8 x 16 heads, T = 1500 + 16, bf16) and with a mask at a smaller
+   shape; a small f32 ``TSASRModel`` on the flash route takes a train step
+   on the card and on the CPU (loss and every gradient must agree), then
+   four steps on the card must lower its loss; then ``make_train_step`` at
+   Whisper-medium (bf16, remat, batch 8 of 30 s + 10 s, 48 text tokens) in
+   mode ``lora`` (f32 moments) and ``full`` (bf16 first moment), the JAX
+   bench's training settings: a warm-up step and three timed steps each,
+   every step with the flash forward launched 48 times and each backward
+   kernel 24 times (24 layers, recomputed in the backward);
+6. last, the profiler reads the device's busy share of the encode, the
+   greedy run, both beam runs and one full-mode training step.
 
 The next-to-last lines are the JSON kernel record and the card's name and
 power limit (``nvidia-smi``); the last line is the JSON ok record. A
 kernel's ``launches`` are those of the path it was ported for (greedy, the
-eager beam path, or the deferred one for the settled kernel);
-``launches_by_path`` has every path's. Needs one
-CUDA device; without one it exits non-zero and prints no result.
+eager beam path, the deferred one for the settled kernel, one full-mode
+training step for the training kernels); ``launches_by_path`` has every
+path's. Needs one CUDA device; without one it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -116,6 +129,23 @@ def device_busy(torch, fn, trace_path: str):
             by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return wall, busy, top
+
+
+def time_events_ms(torch, fn, reps: int = 10) -> float:
+    """Median time of one call of ``fn`` between CUDA events (no graph: for
+    calls that run autograd, each long enough that host launches hide)."""
+    for _ in range(2):
+        fn()
+    samples = []
+    for _ in range(5):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        samples.append(s.elapsed_time(e) / reps)
+    return statistics.median(samples)
 
 
 def bound(bytes_moved: float, ops: float, kind: str):
@@ -392,6 +422,272 @@ def check_small_agreement(torch, dev) -> None:
         raise AssertionError("kernels and plain versions disagree on a small input")
 
 
+TRAIN_B, TRAIN_HEADS, TRAIN_T = 8, 16, 1500 + 16  # the JAX bench's training shape
+
+
+def check_flash_kernels(torch, dev):
+    """Phase 5a: the flash forward and its two backward kernels against
+    their plain versions, at the medium training shape (bf16) and, with a
+    key-padding mask, at a smaller one (bf16 and f32)."""
+    from robustsq_whisper_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def inputs(b, t, h, dtype, masked):
+        q, k, v, do = (
+            torch.randn(b, t, h, 64, generator=g, device=dev).to(dtype) for _ in range(4)
+        )
+        m = None
+        if masked:  # key padding, the second row keeps half its keys
+            lens = torch.tensor([t, t // 2 + 1][:b], device=dev)
+            valid = torch.arange(t, device=dev)[None] < lens[:, None]
+            m = torch.where(valid, 0.0, -1e9)[:, None, None, :]
+        return q, k, v, do, m
+
+    def errors(q, k, v, do, m):
+        """max |kernel - plain| and max |plain| of out, dq, dk, dv (the
+        backward kernels read the plain forward's lse, as in the tests)."""
+        ref_out, lse = fa.flash_attention_fwd_plain(q, k, v, m)
+        delta = fa.flash_delta(ref_out, do)
+        got = (fa.flash_attention_fwd(q, k, v, m)[0],
+               fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, m),
+               *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, m))
+        ref = (ref_out, fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, m),
+               *fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, m))
+        return [((a.float() - b.float()).abs().max().item(), b.float().abs().max().item())
+                for a, b in zip(got, ref)], lse, delta
+
+    # f32 (SIMT): summation order and exp2f; bf16 (tensor cores): operands,
+    # P and dS rounded to bf16 before their products, results to bf16.
+    # Relative to the largest plain value of each result.
+    tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    ok = True
+    for dtype in (torch.bfloat16, torch.float32):
+        errs, _, _ = errors(*inputs(2, 301, 4, dtype, masked=True))
+        for name, (e, scale) in zip(("out", "dq", "dk", "dv"), errs):
+            log(f"flash {name}, padding mask, (2, 301, 4, 64) {dtype}: max_abs_err "
+                f"{e:.3e} (tol {tols[dtype]} x {scale:.3f})")
+            ok = ok and e <= tols[dtype] * scale
+    b, h, t = TRAIN_B, TRAIN_HEADS, TRAIN_T
+    q, k, v, do, _ = inputs(b, t, h, torch.bfloat16, masked=False)
+    errs, lse, delta = errors(q, k, v, do, None)
+    bh = b * h
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs, dos = (x.transpose(1, 2).detach() for x in (q, k, v, do))
+    leaves = [x.clone().requires_grad_() for x in (qs, ks, vs)]
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(*leaves), leaves, dos)
+
+    lib_fwd = time_events_ms(torch, lambda: sdpa(qs, ks, vs), 20)
+    lib_bwd = time_events_ms(torch, sdpa_fwd_bwd, 10) - lib_fwd
+    log(f"scaled_dot_product_attention at the training shape: forward {lib_fwd:.4f} ms "
+        f"(events), backward {lib_bwd:.4f} ms (forward + backward minus forward)")
+    io = bh * t * 64 * 2  # one bf16 (b, T, h, 64) tensor
+    specs = [  # name, TPU kernel line, call, plain, bytes, operations, library ms
+        ("flash_attention", 42, lambda: fa.flash_attention_fwd(q, k, v),
+         lambda: fa.flash_attention_fwd_plain(q, k, v),
+         4 * io + bh * t * 4, 4 * bh * t * t * 64,
+         time_ms(torch, lambda: sdpa(qs, ks, vs))),
+        ("flash_attention_bwd_dq", 215,
+         lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+         lambda: fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta),
+         5 * io + 2 * bh * t * 4, 6 * bh * t * t * 64, lib_bwd),
+        ("flash_attention_bwd_dkv", 250,
+         lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+         lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta),
+         6 * io + 2 * bh * t * 4, 8 * bh * t * t * 64, lib_bwd),
+    ]
+    errs = [errs[0], errs[1], max(errs[2:], key=lambda x: x[0] / x[1])]
+    rows = []
+    for (name, line, call, plain, nbytes, ops, lib), (e, scale) in zip(specs, errs):
+        b_ms, b_by = bound(nbytes, ops, "bf16")
+        rows.append(dict(
+            name=name, route="cuda",
+            source="robustsq_whisper_torch/csrc/" + (
+                "flash_attention.cu" if name == "flash_attention" else "flash_attention_bwd.cu"),
+            replaces=f"{TPU_SRC}/flash_attention.py:{line}",
+            max_abs_err=e, tol=tols[torch.bfloat16] * scale,
+            ms=time_ms(torch, call), plain_ms=time_ms(torch, plain, 3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        ))
+        r = rows[-1]
+        log(f"kernel {name} at ({b}, {t}, {h}, 64) bf16: max_abs_err {e:.3e} (tol "
+            f"{r['tol']:.3e}) ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+            f"{b_ms:.5f} ({b_by}) library_ms {lib:.4f}")
+        ok = ok and e <= r["tol"]
+    if not ok:
+        raise AssertionError("a flash training kernel disagrees with its plain version")
+    return rows
+
+
+def small_train_model(torch, seed: int):
+    """A small f32 TSASRModel on the flash route (2 + 256 encoder positions,
+    head_dim 64), without SpecAugment or dropout, and a batch of 2."""
+    from robustsq_whisper_torch.init import init_params
+    from robustsq_whisper_torch.models import (
+        TSASRModel, TSEncoderConfig, TSModelConfig, WhisperDims,
+    )
+
+    dims = WhisperDims(
+        n_mels=80, n_vocab=120, n_audio_ctx=256, n_audio_state=128,
+        n_audio_head=2, n_audio_layer=2, n_text_ctx=64, n_text_state=128,
+        n_text_head=2, n_text_layer=2,
+    )
+    ts = TSEncoderConfig(
+        num_query_tokens=2, num_hidden_layers=1, qformer_hidden_size=64,
+        qformer_heads=2, qformer_intermediate_size=128, use_flash_attention=True,
+        qformer_hidden_dropout=0.0, qformer_attention_dropout=0.0, remat=True,
+    )
+    cfg = TSModelConfig(vocab_size=120, sos=1, eos=2, startofprev=3, num_speakers=8,
+                        num_negatives=1, use_specaug=False)
+    model = init_params(TSASRModel(dims, ts, cfg), seed)
+    rng = np.random.default_rng(seed)
+    samples, e_samples = 512 * 160, 200 * 160
+    neg = np.array([[-10000.0, 1.0], [1.0, -10000.0]], np.float32)  # one valid column
+    batch = {
+        "speech": torch.from_numpy((rng.standard_normal((2, samples)) * 0.05).astype(np.float32)),
+        "speech_lens": torch.tensor([samples, samples - 20000]),
+        "enroll": torch.from_numpy((rng.standard_normal((2, e_samples)) * 0.05).astype(np.float32)),
+        "enroll_lens": torch.tensor([e_samples, e_samples - 8000]),
+        "text": torch.from_numpy(rng.integers(4, 100, (2, 8))),
+        "text_lens": torch.tensor([8, 6]),
+        "neg_logits": torch.from_numpy(neg),
+        "spk_labels": torch.tensor([1, 5]),
+    }
+    return model, batch
+
+
+def check_small_training(torch, dev) -> None:
+    """Phase 5b: one train step of a small f32 model on the card (the
+    kernels' f32 route) and on the CPU (the plain versions): the loss and
+    every gradient agree; four steps on the card lower the loss."""
+    from robustsq_whisper_torch.train import OptimConfig, TrainConfig
+    from robustsq_whisper_torch.train import create_train_state, make_train_step
+
+    base, batch = small_train_model(torch, 6)
+    grads = {}
+    for where in ("cpu", dev):
+        model = copy.deepcopy(base).to(where)
+        loss, stats = model({k: v.to(where) for k, v in batch.items()}, None, 6, train=True)
+        loss.backward()
+        grads[str(where)] = (loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = grads["cpu"], grads[str(dev)]
+    # f32 both ways: CTC, cuBLAS and the kernels sum in other orders; each
+    # gradient is held to 2e-3 of its own largest entry (1e-6 absolute for
+    # those that are zero in exact arithmetic, the attention key biases)
+    worst = max(
+        ((g_gpu[n] - g).abs().max().item() / max(g.abs().max().item(), 5e-4), n)
+        for n, g in g_cpu.items()
+    )
+    log(f"small training agreement: loss card {l_gpu:.6f} cpu {l_cpu:.6f}; worst "
+        f"gradient {worst[1]} at {worst[0]:.3e} of its scale (tol 2e-3), "
+        f"{len(g_cpu)} tensors")
+    if not (abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu) and worst[0] <= 2e-3):
+        raise AssertionError("the training step disagrees between card and CPU")
+    cfg = TrainConfig(optim=OptimConfig(lr=1e-3, schedule="constant"))
+    model = copy.deepcopy(base)
+    state = create_train_state(model, cfg, device=dev)
+    step = make_train_step(model, cfg, device=dev)
+    losses = [step(state, batch, None, 6)[1]["loss"].item() for _ in range(4)]
+    log(f"small training, four card steps: losses {losses}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError("four training steps did not lower the loss")
+
+
+TRAIN_KERNELS = {"flash_attention": 48, "flash_attention_bwd_dq": 24,
+                 "flash_attention_bwd_dkv": 24}  # per step at medium
+TRAIN_MODES = {"train lora": ("lora", "float32"), "train full": ("full", "bfloat16")}
+
+
+def train_batch(torch, dev, b: int, vocab: int):
+    """The JAX bench's training batch: b x (30 s speech, 10 s enrollment),
+    48 text tokens, every other row a valid negative."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    return {
+        "speech": torch.randn(b, 30 * 16000, generator=g, device=dev) * 0.1,
+        "speech_lens": torch.full((b,), 30 * 16000, device=dev),
+        "enroll": torch.randn(b, 10 * 16000, generator=g, device=dev) * 0.1,
+        "enroll_lens": torch.full((b,), 10 * 16000, device=dev),
+        "text": torch.randint(0, vocab - 4, (b, 48), generator=g, device=dev),
+        "text_lens": torch.full((b,), 48, device=dev),
+        "neg_logits": torch.ones(b, b, device=dev),
+        "spk_labels": torch.randint(0, 1000, (b,), generator=g, device=dev),
+    }
+
+
+def run_train_paths(torch, dev):
+    """Phase 5c: make_train_step at Whisper-medium, lora then full. Returns
+    ({path: launches of one step}, a profiled-step closure)."""
+    from robustsq_whisper_torch.init import init_params
+    from robustsq_whisper_torch.models import (
+        TSASRModel, TSEncoderConfig, TSModelConfig, whisper_dims,
+    )
+    from robustsq_whisper_torch.train import OptimConfig, TrainConfig
+    from robustsq_whisper_torch.train import create_train_state, make_train_step
+    from robustsq_whisper_torch.train.lora import detach_lora
+
+    dims = whisper_dims("medium")
+    ts = TSEncoderConfig(use_flash_attention=True, flash_tmaj=False, remat=True,
+                         gelu_approx=False)
+    t0 = time.perf_counter()
+    model = init_params(TSASRModel(dims, ts, TSModelConfig()), 2)
+    model.set_compute_dtype(torch.bfloat16)
+    log(f"medium training model: {sum(p.numel() for p in model.parameters())} "
+        f"parameters, seeded init {time.perf_counter() - t0:.1f} s")
+    counters = launch_counters()
+    launches, profiled = {}, None
+    for path, (mode, mu) in TRAIN_MODES.items():
+        cfg = TrainConfig(mode=mode, optim=OptimConfig(moment_dtype=mu))
+        b = TRAIN_B
+        while True:
+            try:
+                detach_lora(model)
+                state = create_train_state(model, cfg, device=dev)
+                step = make_train_step(model, cfg, device=dev)
+                batch = train_batch(torch, dev, b, dims.n_vocab)
+                gen = torch.Generator(device=dev).manual_seed(0)
+                torch.cuda.reset_peak_memory_stats(dev)
+                step(state, batch, gen, 0)  # warm-up
+                torch.cuda.synchronize()
+                break
+            except torch.cuda.OutOfMemoryError:
+                state = step = batch = None
+                torch.cuda.empty_cache()
+                b //= 2
+                log(f"{path}: out of memory, batch halved to {b}")
+                if b < 1:
+                    raise
+        times, losses = [], []
+        for _ in range(3):
+            for w, attr in counters.values():
+                setattr(w, attr, 0)
+            t0 = time.perf_counter()
+            _, stats = step(state, batch, gen, 0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts = {n: getattr(w, attr) for n, (w, attr) in counters.items()}
+            losses.append({k: round(v.item(), 4) for k, v in stats.items()})
+            wrong = {n: counts[n] for n, want in TRAIN_KERNELS.items() if counts[n] != want}
+            if wrong:
+                raise AssertionError(f"{path}: launches per step {wrong}, want {TRAIN_KERNELS}")
+        launches[path] = counts
+        n_train = sum(t.numel() for t in state.trainables)
+        log(f"{path} (batch {b}, moments {mu}, {n_train} trainable): step ms "
+            f"{[round(x * 1e3, 1) for x in times]}, {b * 30 / min(times):.2f} audio-s per "
+            f"GPU-s at the fastest, peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches per step "
+            f"{ {n: counts[n] for n in TRAIN_KERNELS} }; stats {losses}")
+        if not all(np.isfinite(list(x.values())).all() for x in losses):
+            raise AssertionError(f"{path}: non-finite loss or stats")
+        if mode == "full":
+            profiled = (state, step, batch, gen)
+        else:
+            del state, step, batch
+            torch.cuda.empty_cache()
+    return launches, profiled
+
+
 def synthetic_pairs(n: int, seed: int):
     """(speech 30 s, enrollment 10 s) pairs: tones with harmonics + noise."""
     rng = np.random.default_rng(seed)
@@ -420,6 +716,9 @@ def launch_counters():
         "decode_self_attention": (sa.decode_self_attention, "launches"),
         "beam_reorder_cache": (bg.beam_reorder_cache, "launches"),
         "settled_self_attention": (sa.settled_self_attention, "launches"),
+        "flash_attention": (fa.flash_attention_fwd, "launches"),
+        "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq, "launches"),
+        "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv, "launches"),
     }
 
 
@@ -491,6 +790,9 @@ OWN_PATH = {  # the path a kernel was ported for, where not greedy's
     "decode_cross_attention_grouped": "beam 5 eager",
     "beam_reorder_cache": "beam 5 eager",
     "settled_self_attention": "beam 5 defer_reorder=8",
+    "flash_attention": "train full",
+    "flash_attention_bwd_dq": "train full",
+    "flash_attention_bwd_dkv": "train full",
 }
 
 
@@ -599,21 +901,24 @@ def run_beam_paths(torch, dev, models, batch: int, max_new: int):
     return launches, (engines, memory, prompt)
 
 
-def profile_runs(torch, greedy, beam) -> None:
-    """Device busy share of the encode, the greedy run and the two beam
-    runs, by profiler; last, because the profiler slows later host work."""
+def profile_runs(torch, greedy, beam, train) -> None:
+    """Device busy share of the encode, the greedy run, the two beam runs
+    and one full-mode training step, by profiler; last, because the
+    profiler slows later host work."""
     from robustsq_whisper_torch.decode.pipeline import chunked_encode
     from robustsq_whisper_torch.ops._build import BUILD
 
     engine, staged, memory, prompt = greedy
     b_engines, b_memory, b_prompt = beam
     eager, deferred = (b_engines[p].run for p in BEAM_PATHS)
+    state, step, batch, gen = train
     os.makedirs(BUILD, exist_ok=True)
     for phase, fn in (
         ("encode", lambda: chunked_encode(engine.encode, *staged, 0)),
         ("run", lambda: engine.run(memory, prompt)),
         ("beam_run", lambda: eager(b_memory, b_prompt)),
         ("beam_run_deferred", lambda: deferred(b_memory, b_prompt)),
+        ("train_full_step", lambda: step(state, batch, gen, 0)),
     ):
         wall, busy, top = device_busy(torch, fn, str(BUILD / f"trace_{phase}.json"))
         log(f"profile {phase}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
@@ -644,12 +949,15 @@ def main() -> int:
 
     batch, max_new, beam = 4, 32, 5
     rows = check_kernels(torch, dev, batch, max_new, beam)
+    rows += check_flash_kernels(torch, dev)
     check_small_agreement(torch, dev)
+    check_small_training(torch, dev)
     models = medium_models(torch, dev)
     greedy_launches, greedy = run_main_path(torch, dev, models, batch, max_new)
     beam_launches, beam_run = run_beam_paths(torch, dev, models, batch, max_new)
-    profile_runs(torch, greedy, beam_run)
-    by_path = {"greedy": greedy_launches, **beam_launches}
+    train_launches, train_run = run_train_paths(torch, dev)
+    profile_runs(torch, greedy, beam_run, train_run)
+    by_path = {"greedy": greedy_launches, **beam_launches, **train_launches}
     for r in rows:  # launches on the path this row's kernel was ported for
         r["launches"] = by_path[OWN_PATH.get(r["name"], "greedy")][r["name"]]
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}

@@ -14,12 +14,18 @@ counterpart here. The module paths are the flax names with these changes:
 
 Whisper's attention ``key`` has no bias in either tree, so nothing is
 added or dropped: every flax leaf maps to exactly one tensor (L tensors for
-a stacked leaf).
+a stacked leaf). The training model's heads need no rule of their own:
+``ctc/ctc_lo`` and ``asp/projection`` are Dense layers and the AAM
+``classifier`` (num_speakers, dim) keeps its name and layout.
+
+``flax_lora_to_port`` carries a JAX LoRA tree ``{kernel path: {"a": ([L,]
+in, r), "b": ([L,] r, out)}}`` over to the port's per-layer factors, keyed
+by the adapted weight's name (``train/lora.py``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -45,32 +51,51 @@ def _leaf(name: str, x: np.ndarray) -> Tuple[str, np.ndarray]:
     return name, x
 
 
+def _unstacked(path: Tuple[str, ...], x: np.ndarray) -> List[Tuple[List[str], np.ndarray]]:
+    """A flax path and its leaf as (port module path parts, array) pairs:
+    ``layers_i`` -> ``layers.i``, and a scan-stacked ``block`` leaf split
+    into one ``blocks.i`` entry per layer."""
+    parts = [
+        p.replace("layers_", "layers.") if p.startswith("layers_") else p
+        for p in path
+    ]
+    if "block" not in parts:
+        return [(parts, x)]
+    at = parts.index("block")
+    return [
+        (parts[:at] + ["blocks", str(i)] + parts[at + 1 :], x[i])
+        for i in range(x.shape[0])
+    ]
+
+
 def flax_to_state_dict(variables: Any) -> Dict[str, torch.Tensor]:
     """The torch state dict of ``variables`` (all collections merged), in
     f32. Raises if two leaves map to one name."""
     out: Dict[str, torch.Tensor] = {}
-
-    def put(parts, x):
-        *mods, name = parts
-        tname, arr = _leaf(name, x)
-        key = ".".join(mods + [tname])
-        if key in out:
-            raise ValueError(f"two flax leaves map to {key}")
-        out[key] = torch.from_numpy(np.array(arr, np.float32))  # owned copy
-
     for collection in variables.values():
         for path, leaf in _leaves(collection):
-            x = np.asarray(leaf, np.float32)
-            parts = [
-                p.replace("layers_", "layers.") if p.startswith("layers_") else p
-                for p in path
-            ]
-            if "block" in parts:
-                at = parts.index("block")
-                for i in range(x.shape[0]):
-                    put(parts[:at] + ["blocks", str(i)] + parts[at + 1 :], x[i])
-            else:
-                put(parts, x)
+            for parts, x in _unstacked(path, np.asarray(leaf, np.float32)):
+                *mods, name = parts
+                tname, arr = _leaf(name, x)
+                key = ".".join(mods + [tname])
+                if key in out:
+                    raise ValueError(f"two flax leaves map to {key}")
+                out[key] = torch.from_numpy(np.array(arr, np.float32))  # owned copy
+    return out
+
+
+def flax_lora_to_port(lora: Any) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """JAX LoRA factors -> {port weight name: (a (in, r), b (r, out))}, f32."""
+    out: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+    for path, ab in lora.items():
+        a, b = (np.asarray(ab[k], np.float32) for k in ("a", "b"))
+        *mods, leaf = path.split("/")
+        if leaf != "kernel":
+            raise ValueError(f"LoRA on a non-kernel leaf: {path}")
+        for (parts, a_i), (_, b_i) in zip(_unstacked(tuple(mods), a), _unstacked(tuple(mods), b)):
+            out[".".join(parts + ["weight"])] = (
+                torch.from_numpy(np.array(a_i)), torch.from_numpy(np.array(b_i)),
+            )
     return out
 
 

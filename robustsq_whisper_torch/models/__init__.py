@@ -1,11 +1,12 @@
 from .qformer import QFormerAdapter, QformerConfig
 from .ts_decoder import STARTOFPREV, TSDecoder
 from .ts_encoder import QFormerTSEncoder, TSEncoderConfig
+from .ts_model import TSASRModel, TSModelConfig
 from .whisper.config import WhisperDims, whisper_dims
 from .whisper.modules import AudioEncoder, TextDecoder
 
 __all__ = [
     "AudioEncoder", "QFormerAdapter", "QFormerTSEncoder", "QformerConfig",
-    "STARTOFPREV", "TSDecoder", "TSEncoderConfig", "TextDecoder",
-    "WhisperDims", "whisper_dims",
+    "STARTOFPREV", "TSASRModel", "TSDecoder", "TSEncoderConfig",
+    "TSModelConfig", "TextDecoder", "WhisperDims", "whisper_dims",
 ]

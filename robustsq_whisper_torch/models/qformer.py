@@ -1,4 +1,4 @@
-"""BLIP-2-style Qformer speaker-prompt adapter (inference).
+"""BLIP-2-style Qformer speaker-prompt adapter.
 
 Mirrors the JAX package's ``models/qformer.py``: a Linear "word embedding"
 over continuous enrollment features plus sinusoid positions, learned query
@@ -6,7 +6,14 @@ tokens prepended before a joint LayerNorm, then post-LN BERT layers (eps
 1e-12, exact GELU) where self-attention runs over [queries; enrollment],
 cross-attention to the speech memory runs on the query slice only, and the
 two halves have separate FFNs. Masks are additive ``(1 - m) * -10000``.
-Plain PyTorch, no kernel; dropout is a training concern and is absent.
+Plain PyTorch, no kernel.
+
+Training (``train=True``) applies BERT's inverted dropout where the JAX
+package does: ``hidden_dropout_prob`` on the embedding after its LayerNorm,
+on each attention output dense and on each FFN fc2 before the residual add,
+and ``attention_probs_dropout_prob`` on the softmax weights. The masks are
+drawn from the ``generator`` passed in; with ``train=False`` or a rate of 0
+the Qformer is deterministic.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import dot_product_attention
+from ..ops.attention import dot_product_attention, dropout
 from .whisper.config import sinusoids
 from .whisper.modules import LayerNorm, Linear
 
@@ -26,7 +33,7 @@ from .whisper.modules import LayerNorm, Linear
 @dataclasses.dataclass(frozen=True)
 class QformerConfig:
     """The knobs of the JAX package's QformerConfig (same names, same
-    defaults); the dropout rates only matter for training."""
+    defaults); the dropout rates apply in training only."""
 
     encoder_width: int = 1024
     hidden_size: int = 768
@@ -54,14 +61,17 @@ class BertSelfAttentionBlock(nn.Module):
         self.out = Linear(cfg.hidden_size, cfg.hidden_size)
         self.ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
-    def forward(self, x, kv_src, mask: Optional[torch.Tensor]):
-        heads = self.cfg.num_attention_heads
-        split = lambda t: t.reshape(t.shape[0], t.shape[1], heads, -1)
+    def forward(self, x, kv_src, mask: Optional[torch.Tensor], train=False, generator=None):
+        cfg = self.cfg
+        split = lambda t: t.reshape(t.shape[0], t.shape[1], cfg.num_attention_heads, -1)
         o = dot_product_attention(
             split(self.query(x)), split(self.key(kv_src)),
             split(self.value(kv_src)), mask=mask,
+            dropout_rate=cfg.attention_probs_dropout_prob if train else 0.0,
+            generator=generator,
         )
         o = self.out(o.reshape(x.shape))
+        o = dropout(o, cfg.hidden_dropout_prob if train else 0.0, generator)
         return self.ln(o + x).to(o.dtype)
 
 
@@ -70,12 +80,14 @@ class BertFFN(nn.Module):
 
     def __init__(self, cfg: QformerConfig):
         super().__init__()
+        self.rate = cfg.hidden_dropout_prob
         self.fc1 = Linear(cfg.hidden_size, cfg.intermediate_size)
         self.fc2 = Linear(cfg.intermediate_size, cfg.hidden_size)
         self.ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
-    def forward(self, x):
+    def forward(self, x, train=False, generator=None):
         h = self.fc2(F.gelu(self.fc1(x), approximate="none"))
+        h = dropout(h, self.rate if train else 0.0, generator)
         return self.ln(h + x).to(h.dtype)
 
 
@@ -90,14 +102,17 @@ class QformerLayer(nn.Module):
         self.ffn_query = BertFFN(cfg)
         self.ffn = BertFFN(cfg)
 
-    def forward(self, x, self_mask, memory, memory_mask):
-        x = self.attention(x, x, self_mask)
+    def forward(self, x, self_mask, memory, memory_mask, train=False, generator=None):
+        x = self.attention(x, x, self_mask, train, generator)
         q_part, e_part = x[:, : self.nq], x[:, self.nq :]
         if self.has_cross_attention:
             q_part = self.crossattention(
-                q_part, memory.to(q_part.dtype), memory_mask
+                q_part, memory.to(q_part.dtype), memory_mask, train, generator
             )
-        return torch.cat([self.ffn_query(q_part), self.ffn(e_part)], dim=1)
+        return torch.cat(
+            [self.ffn_query(q_part, train, generator), self.ffn(e_part, train, generator)],
+            dim=1,
+        )
 
 
 def _key_mask(valid: torch.Tensor) -> torch.Tensor:
@@ -107,7 +122,8 @@ def _key_mask(valid: torch.Tensor) -> torch.Tensor:
 
 class QFormerAdapter(nn.Module):
     """Speaker-prompt Qformer: ``forward(memory, memory_lens, enroll,
-    enroll_lens) -> (query_embeddings, enroll_embeddings)``."""
+    enroll_lens, train=False, generator=None) -> (query_embeddings,
+    enroll_embeddings)``."""
 
     def __init__(self, cfg: QformerConfig):
         super().__init__()
@@ -134,6 +150,8 @@ class QFormerAdapter(nn.Module):
         memory_lens: Optional[torch.Tensor],  # (batch,) valid frames
         enroll: torch.Tensor,  # (batch, enr, encoder_width)
         enroll_lens: Optional[torch.Tensor],
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ):
         cfg = self.cfg
         b, n_enroll = enroll.shape[:2]
@@ -142,6 +160,7 @@ class QFormerAdapter(nn.Module):
         e = e + self.position_embeddings[:n_enroll].to(e.dtype)
         q = self.query_tokens.to(e.dtype).expand(b, nq, cfg.hidden_size)
         x = self.emb_ln(torch.cat([q, e], dim=1)).to(e.dtype)
+        x = dropout(x, cfg.hidden_dropout_prob if train else 0.0, generator)
 
         dev = enroll.device
         self_mask = None
@@ -162,5 +181,5 @@ class QFormerAdapter(nn.Module):
             )
             memory_mask = _key_mask(m_valid)
         for layer in self.layers:
-            x = layer(x, self_mask, memory, memory_mask)
+            x = layer(x, self_mask, memory, memory_mask, train, generator)
         return x[:, :nq], x[:, nq:]

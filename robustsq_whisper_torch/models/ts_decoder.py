@@ -1,9 +1,11 @@
-"""Speaker-prompted Whisper text decoder: the decode methods.
+"""Speaker-prompted Whisper text decoder.
 
-Mirrors the decode side of ``TSDecoder`` in the JAX package's
-``models/ts_decoder.py``: the prefill runs [<|startofprev|>; speaker prompt;
-init tokens] once over the KV cache, then ``step`` extends one token at a
-time. The training forward comes with ROADMAP A12.
+Mirrors ``TSDecoder`` of the JAX package's ``models/ts_decoder.py``. The
+training ``forward`` runs [<|startofprev|>; speaker prompt; targets]
+teacher-forced and causally masked, and returns the logits of the target
+positions only. For decoding, the prefill runs [<|startofprev|>; speaker
+prompt; init tokens] once over the KV cache, then ``step`` extends one token
+at a time.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ class TSDecoder(nn.Module):
         self_kv_bits: int = 16,
         flat_self_cache: bool = True,
         tmin_self_cache: bool = False,
+        remat: bool = False,
+        sequence_parallel: bool = False,
     ):
         super().__init__()
         self.dims = dims
@@ -37,7 +41,37 @@ class TSDecoder(nn.Module):
         self.decoder = TextDecoder(
             dims, cross_kv_bits=cross_kv_bits, self_kv_bits=self_kv_bits,
             flat_self_cache=flat_self_cache, tmin_self_cache=tmin_self_cache,
+            remat=remat, sequence_parallel=sequence_parallel,
         )
+
+    def _prefixed(self, tokens: torch.Tensor, spk_prompt: Optional[torch.Tensor]):
+        """Embeddings of [startofprev; spk_prompt; tokens] (the prompt
+        broadcast over the batch) and the prefix length."""
+        b = tokens.shape[0]
+        tok_emb = self.decoder.embed(tokens)
+        if not (self.use_spk_prompt and spk_prompt is not None):
+            return tok_emb, 0
+        if spk_prompt.shape[0] != b:
+            spk_prompt = spk_prompt.expand(b, *spk_prompt.shape[1:])
+        sop = torch.full(
+            (b, 1), self.startofprev_token, dtype=tokens.dtype, device=tokens.device
+        )
+        x_emb = torch.cat(
+            [self.decoder.embed(sop), spk_prompt.to(tok_emb.dtype), tok_emb], dim=1
+        )
+        return x_emb, 1 + spk_prompt.shape[1]
+
+    def forward(
+        self,
+        memory: torch.Tensor,  # (batch, src, n_state) encoder output
+        ys_in: torch.Tensor,  # (batch, tgt_len) sos-prefixed targets
+        spk_prompt: Optional[torch.Tensor],  # (batch, n_q, n_state)
+    ) -> torch.Tensor:
+        """Training forward: f32 logits (batch, tgt_len, vocab) of the
+        target positions (the prefix sliced off)."""
+        x_emb, prefix = self._prefixed(ys_in, spk_prompt)
+        hidden = self.decoder.forward_embedded(x_emb, memory)
+        return self.decoder.logits(hidden)[:, prefix:]
 
     def cross_kv(self, memory: torch.Tensor, quantize: bool = False):
         return self.decoder.cross_kv(memory, quantize=quantize)
@@ -57,22 +91,7 @@ class TSDecoder(nn.Module):
     ):
         """Run [startofprev; spk_prompt; init_tokens] once, filling the
         cache. The next ``step`` uses ``pos = prompt_len + n_init``."""
-        b = init_tokens.shape[0]
-        tok_emb = self.decoder.embed(init_tokens)
-        if self.use_spk_prompt and spk_prompt is not None:
-            if spk_prompt.shape[0] != b:
-                spk_prompt = spk_prompt.expand(b, *spk_prompt.shape[1:])
-            sop = torch.full(
-                (b, 1), self.startofprev_token, dtype=init_tokens.dtype,
-                device=init_tokens.device,
-            )
-            x_emb = torch.cat(
-                [self.decoder.embed(sop), spk_prompt.to(tok_emb.dtype), tok_emb],
-                dim=1,
-            )
-        else:
-            x_emb = tok_emb
-        return self.decoder.prefill(x_emb, cache, cross)
+        return self.decoder.prefill(self._prefixed(init_tokens, spk_prompt)[0], cache, cross)
 
     def check_self_cache(self) -> None:
         """Raise unless the self cache is the dense flat one of this port."""

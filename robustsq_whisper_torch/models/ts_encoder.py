@@ -1,11 +1,14 @@
-"""Qformer target-speaker Whisper encoder (the serving main path).
+"""Qformer target-speaker Whisper encoder (serving and training).
 
 Mirrors ``QFormerTSEncoder`` of the JAX package's ``models/ts_encoder.py``:
 conv stems on the speech (with positions) and the enrollment (without),
 the Qformer speaker prompt, ``prompt_proj`` when the Qformer width differs
 from the encoder's, the prompt concatenated ahead of the speech frames,
-then the Whisper blocks and ``ln_post``. The embedding-enrollment encoder
-(``SpkAdapterTSEncoder``) is ROADMAP A14.
+then the Whisper blocks and ``ln_post``. ``train=True`` turns on the
+Qformer's dropout (masks from the ``generator`` passed in); ``remat``
+recomputes the Whisper blocks in the backward. The embedding-enrollment
+encoder (``SpkAdapterTSEncoder``) is ROADMAP A14, sequence parallelism
+ROADMAP A15.
 """
 
 from __future__ import annotations
@@ -24,8 +27,8 @@ from .whisper.modules import AudioEncoder, Linear
 @dataclasses.dataclass(frozen=True)
 class TSEncoderConfig:
     """The Qformer-path knobs of the JAX package's TSEncoderConfig (same
-    names and defaults). ``enroll_type="embedding"`` and the training knobs
-    (remat, sequence parallelism, dropout) are not in this slice."""
+    names and defaults). ``enroll_type="embedding"`` (ROADMAP A14) and
+    ``sequence_parallel=True`` (ROADMAP A15) raise."""
 
     enroll_type: str = "audio"
     num_query_tokens: int = 16
@@ -34,15 +37,20 @@ class TSEncoderConfig:
     qformer_hidden_size: int = 768
     qformer_heads: int = 12
     qformer_intermediate_size: int = 3072
+    qformer_hidden_dropout: float = 0.1
+    qformer_attention_dropout: float = 0.1
     use_flash_attention: bool = False
     flash_tmaj: bool = False
+    remat: bool = False
     gelu_approx: bool = False
+    sequence_parallel: bool = False
 
 
 class QFormerTSEncoder(nn.Module):
-    """``forward(feats, feats_lens, enroll_feats, enroll_feats_lens) ->
-    (encoder_out, out_lens, spk_prompt, enroll_embedding)``; the prompt
-    occupies the first ``num_query_tokens`` positions of ``encoder_out``."""
+    """``forward(feats, feats_lens, enroll_feats, enroll_feats_lens,
+    train=False, generator=None) -> (encoder_out, out_lens, spk_prompt,
+    enroll_embedding)``; the prompt occupies the first ``num_query_tokens``
+    positions of ``encoder_out``."""
 
     def __init__(self, dims: WhisperDims, ts: TSEncoderConfig = TSEncoderConfig()):
         super().__init__()
@@ -53,7 +61,8 @@ class QFormerTSEncoder(nn.Module):
         self.dims, self.ts = dims, ts
         self.encoder = AudioEncoder(
             dims, use_flash=ts.use_flash_attention, flash_tmaj=ts.flash_tmaj,
-            gelu_approx=ts.gelu_approx,
+            gelu_approx=ts.gelu_approx, remat=ts.remat,
+            sequence_parallel=ts.sequence_parallel,
         )
         qcfg = QformerConfig(
             encoder_width=dims.n_audio_state,
@@ -62,6 +71,8 @@ class QFormerTSEncoder(nn.Module):
             intermediate_size=ts.qformer_intermediate_size,
             num_hidden_layers=ts.num_hidden_layers,
             num_query_tokens=ts.num_query_tokens,
+            hidden_dropout_prob=ts.qformer_hidden_dropout,
+            attention_probs_dropout_prob=ts.qformer_attention_dropout,
         )
         self.qformer = QFormerAdapter(qcfg)
         self.prompt_proj = (
@@ -75,6 +86,8 @@ class QFormerTSEncoder(nn.Module):
         feats_lens: Optional[torch.Tensor],  # (batch,) valid mel frames
         enroll_feats: torch.Tensor,  # (batch, n_mels, enr_frames)
         enroll_feats_lens: Optional[torch.Tensor],
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ):
         max_ctx = self.dims.n_audio_ctx
         x = self.encoder.conv_stem(feats, add_positions=True)
@@ -87,7 +100,9 @@ class QFormerTSEncoder(nn.Module):
             None if enroll_feats_lens is None
             else AudioEncoder.output_lengths(enroll_feats_lens, max_ctx)
         )
-        spk_prompt, enroll_embedding = self.qformer(x, x_lens, enroll, enroll_lens)
+        spk_prompt, enroll_embedding = self.qformer(
+            x, x_lens, enroll, enroll_lens, train, generator
+        )
         if self.prompt_proj is not None:
             spk_prompt = self.prompt_proj(spk_prompt)
             enroll_embedding = self.prompt_proj(enroll_embedding)
@@ -97,3 +112,7 @@ class QFormerTSEncoder(nn.Module):
                 x_lens = x_lens + self.ts.num_query_tokens
         x = self.encoder.run_blocks(x)
         return x, x_lens, spk_prompt, enroll_embedding
+
+    @property
+    def prompt_len(self) -> int:
+        return self.ts.num_query_tokens if self.ts.use_spk_prompt else 0

@@ -1,5 +1,5 @@
-"""Whisper encoder and decoder as PyTorch modules, for greedy and beam
-serving.
+"""Whisper encoder and decoder as PyTorch modules, for serving and
+training.
 
 Mirrors the JAX package's ``models/whisper/modules.py``: pre-LN residual
 attention blocks, GELU MLPs, sinusoidal audio positions, learned text
@@ -18,10 +18,17 @@ tensors can be fed to both:
   batch rows and ``beam_group=k`` lets each utterance's beams share it;
   the deferred beam reorder reads the settled prefix through ``row_map``.
 
+Training: the encoder self-attention takes the row-major flash route
+(``use_flash`` without ``flash_tmaj``, no mask, T >= 256: the differentiable
+``flash_attention``); ``TextDecoder.forward_embedded`` is the teacher-forced
+forward; ``remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``, non-reentrant) when gradients are on. A
+``Linear`` may carry LoRA factors (``train/lora.py``), which its forward adds
+to the weight.
+
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
 item): the 5-D and time-minor self caches, the int8 self cache, W8A8 step
-weights and the row-major flash route (``use_flash`` without
-``flash_tmaj``).
+weights and sequence parallelism.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import causal_mask, dot_product_attention
 from ...ops.decode_attention import (
@@ -38,7 +46,7 @@ from ...ops.decode_attention import (
     pack_int4,
     unpack_int4,
 )
-from ...ops.flash_attention import flash_attention_tmaj
+from ...ops.flash_attention import flash_attention, flash_attention_tmaj
 from ...ops.self_attention import (
     BLOCK_POS,
     decode_self_attention,
@@ -68,10 +76,24 @@ class LayerNorm(nn.Module):
 
 class Linear(nn.Linear):
     """``nn.Linear`` that casts its input to the weight dtype (the compute
-    dtype), like a flax Dense with ``dtype`` set."""
+    dtype), like a flax Dense with ``dtype`` set.
+
+    ``lora``: None, or LoRA factors ``(a (in, r), b (r, out), scale)``
+    attached by ``train.lora.attach_lora``; the layer then computes with
+    ``weight + scale * (a @ b)^T``, the JAX package's ``merge_lora`` on a
+    (in, out) kernel. They are not parameters of the module."""
+
+    lora = None
+
+    def effective_weight(self) -> torch.Tensor:
+        if self.lora is None:
+            return self.weight
+        a, b, scale = self.lora
+        delta = (a @ b).t() * scale
+        return (self.weight.float() + delta).to(self.weight.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        return F.linear(x.to(self.weight.dtype), self.effective_weight(), self.bias)
 
 
 def gelu(x: torch.Tensor, approx: bool) -> torch.Tensor:
@@ -215,11 +237,9 @@ class MultiHeadAttention(nn.Module):
     ) -> torch.Tensor:
         q = self._split(self.query(x))
         if self.use_flash and mask is None and q.shape[1] >= 256:
-            raise NotImplementedError(
-                "the row-major flash kernel (use_flash without flash_tmaj) "
-                "is ROADMAP B5"
-            )
-        o = dot_product_attention(q, k, v, mask=mask)
+            o = flash_attention(q, k, v)
+        else:
+            o = dot_product_attention(q, k, v, mask=mask)
         return self.out(self._merge(o))
 
     def self_attend_tmaj(self, x: torch.Tensor) -> torch.Tensor:
@@ -232,14 +252,14 @@ class MultiHeadAttention(nn.Module):
         xt = x.to(self.dtype).transpose(1, 2)  # (b, c, T) view
 
         def proj(lin: Linear) -> torch.Tensor:
-            y = torch.matmul(lin.weight, xt)  # (b, n_state, T)
+            y = torch.matmul(lin.effective_weight(), xt)  # (b, n_state, T)
             if lin.bias is not None:
                 y = y + lin.bias[None, :, None]
             return y.contiguous().reshape(b * h, d, t)
 
         o = flash_attention_tmaj(proj(self.query), proj(self.key), proj(self.value))
         o = o.reshape(b, self.n_state, t).transpose(1, 2)
-        return F.linear(o, self.out.weight, self.out.bias)
+        return F.linear(o, self.out.effective_weight(), self.out.bias)
 
     def forward(
         self,
@@ -363,6 +383,21 @@ class ResidualAttentionBlock(nn.Module):
         return x + self._mlp(self._cast(self.mlp_ln(x)))
 
 
+def _no_sequence_parallel(sequence_parallel: bool) -> None:
+    if sequence_parallel:
+        raise NotImplementedError(
+            "sequence parallelism needs a model-parallel mesh, ROADMAP A15"
+        )
+
+
+def _run_block(block: nn.Module, remat: bool, *args) -> torch.Tensor:
+    """``block(*args)``, recomputed in the backward (non-reentrant
+    checkpoint) when ``remat`` is set and gradients are on."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
+
+
 class AudioEncoder(nn.Module):
     """Whisper audio encoder with the conv stem and the block stack exposed
     separately, so the target-speaker encoder can insert its prompt."""
@@ -370,10 +405,13 @@ class AudioEncoder(nn.Module):
     def __init__(
         self, dims: WhisperDims, use_flash: bool = False,
         flash_tmaj: bool = False, gelu_approx: bool = False,
+        remat: bool = False, sequence_parallel: bool = False,
     ):
         super().__init__()
+        _no_sequence_parallel(sequence_parallel)
         self.dims = dims
         self.gelu_approx = gelu_approx
+        self.remat = remat
         d = dims.n_audio_state
         self.conv1 = nn.Conv1d(dims.n_mels, d, 3, padding=1)
         self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1)
@@ -408,7 +446,7 @@ class AudioEncoder(nn.Module):
     def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         for block in self.blocks:
-            x = block(x)
+            x = _run_block(block, self.remat, x)
         return self.ln_post(x).to(self.dtype)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
@@ -427,10 +465,13 @@ class TextDecoder(nn.Module):
     def __init__(
         self, dims: WhisperDims, cross_kv_bits: int = 8,
         self_kv_bits: int = 16, flat_self_cache: bool = True,
-        tmin_self_cache: bool = False,
+        tmin_self_cache: bool = False, remat: bool = False,
+        sequence_parallel: bool = False,
     ):
         super().__init__()
+        _no_sequence_parallel(sequence_parallel)
         self.dims = dims
+        self.remat = remat
         self.cross_kv_bits = cross_kv_bits
         self.self_kv_bits = self_kv_bits
         self.flat_self_cache = flat_self_cache
@@ -489,12 +530,38 @@ class TextDecoder(nn.Module):
         """Tied-embedding output projection, returned in f32. On the card a
         bf16 product is summed and returned in f32 without a bf16 rounding,
         as the JAX einsum's ``preferred_element_type``; PyTorch's CPU
-        matmul has no such mode and rounds to the operand dtype."""
+        matmul has no such mode and rounds to the operand dtype. With
+        gradients on, the operands are rounded to the compute dtype and
+        multiplied in f32 (the same sums, through autograd)."""
         x, w = x.to(self.dtype), self.token_embedding.weight
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return F.linear(x.float(), w.float())
         if x.is_cuda and w.dtype != torch.float32:
             flat = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
             return flat.reshape(*x.shape[:-1], w.shape[0])
         return F.linear(x, w).float()
+
+    # ---- full-sequence forward (training) ----
+
+    def forward_embedded(
+        self, x_emb: torch.Tensor, memory: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """The blocks over already-embedded input (positions added here),
+        causally masked unless ``mask`` is given; ``ln``-normed hidden
+        states in the compute dtype."""
+        length = x_emb.shape[1]
+        x = (x_emb + self.positional_embedding[:length]).to(self.dtype)
+        if mask is None:
+            mask = causal_mask(length, device=x.device)
+        memory = memory.to(self.dtype)
+        for block in self.blocks:
+            x = _run_block(block, self.remat, x, memory, mask)
+        return self.ln(x).to(self.dtype)
+
+    def forward(self, tokens: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        """(batch, len) tokens and (batch, src, n_state) memory -> f32 logits."""
+        return self.logits(self.forward_embedded(self.embed(tokens), memory))
 
     # ---- KV-cache decode path ----
 

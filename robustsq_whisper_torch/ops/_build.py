@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` (the hash is
-of the source, so an edited kernel is rebuilt). Nothing includes PyTorch's
-headers, so a build takes seconds. The build directory is listed in
+of the source and of every shared ``csrc/*.cuh`` header, so an edited kernel
+or header is rebuilt). Nothing includes PyTorch's headers, so a build takes
+seconds. The build directory is listed in
 ``.gitignore``; it is created inside the package, next to the sources.
 """
 
@@ -27,21 +28,28 @@ KERNELS = (
     "decode_self_attention",
     "beam_reorder_cache",
     "settled_self_attention",
+    "flash_attention",
+    "flash_attention_bwd",
 )
+# C entry points of a library, where not one named like the library
+ENTRIES = {"flash_attention_bwd": ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signature of each library's one entry point (named like the library):
-# pointers and the stream as void*, sizes and modes as int
+# C signature of each entry point: pointers and the stream as void*, sizes
+# and modes as int
 SIGNATURES = {
     "flash_attention_tmaj": [_P] * 4 + [_I] * 4 + [_P],
     "decode_cross_attention": [_P] * 6 + [_I] * 6 + [_P],
     "decode_self_attention": [_P] * 8 + [_I] * 5 + [_P],
     "beam_reorder_cache": [_P] * 3 + [_I] * 6 + [_P],
     "settled_self_attention": [_P] * 9 + [_I] * 6 + [_P],
+    "flash_attention": [_P] * 6 + [_I] * 10 + [_P],
+    "flash_attention_bwd_dq": [_P] * 8 + [_I] * 10 + [_P],
+    "flash_attention_bwd_dkv": [_P] * 9 + [_I] * 10 + [_P],
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -61,6 +69,8 @@ def nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
@@ -99,20 +109,22 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     return reports
 
 
-def load(name: str):
-    """The C entry point of kernel ``name``, its library built first if
-    missing, with its argument types declared."""
+def load(name: str, entry: str = ""):
+    """C entry point ``entry`` (default: the library's first) of kernel
+    library ``name``, the library built first if missing, with the argument
+    types of its entry points declared."""
     lib = _loaded.get(name)
     if lib is None:
         path = lib_path(name)
         if not path.exists():
             build([name])
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, name)
-        fn.argtypes = SIGNATURES[name]
-        fn.restype = ctypes.c_int
+        for e in ENTRIES.get(name, (name,)):
+            fn = getattr(lib, e)
+            fn.argtypes = SIGNATURES[e]
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
-    return getattr(lib, name)
+    return getattr(lib, entry or ENTRIES.get(name, (name,))[0])
 
 
 def build_all():

@@ -18,9 +18,13 @@ def dot_product_attention(
     v: torch.Tensor,  # (batch, kv_len, heads, head_dim)
     mask: Optional[torch.Tensor] = None,  # additive, bcast (b, h, q, kv)
     out_dtype: Optional[torch.dtype] = None,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Scaled dot-product attention; returns (batch, q_len, heads, head_dim)
-    in ``out_dtype`` (default q.dtype). Scores and softmax run in f32."""
+    in ``out_dtype`` (default q.dtype). Scores and softmax run in f32.
+    ``dropout_rate`` > 0: inverted dropout on the softmax weights (the
+    Qformer's training attention-probs dropout), drawn from ``generator``."""
     out_dtype = out_dtype or q.dtype
     scale = q.shape[-1] ** -0.5
     # f32 products of the (possibly bf16) operands: the JAX version's
@@ -28,11 +32,23 @@ def dot_product_attention(
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if mask is not None:
         scores = scores + mask.float()
-    weights = torch.softmax(scores, dim=-1)
+    weights = dropout(torch.softmax(scores, dim=-1), dropout_rate, generator)
     out = torch.einsum(
         "bhqk,bkhd->bqhd", weights.to(v.dtype).float(), v.float()
     )
     return out.to(out_dtype)
+
+
+def dropout(
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability ``1 - rate`` and
+    scaled by ``1 / (1 - rate)``, drawn from ``generator`` (torch's default
+    generator when None); the identity at rate 0."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 def causal_mask(

@@ -212,6 +212,9 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
 
     for mod, name in (
         (tflash, "flash_attention_tmaj_plain"),
+        (tflash, "flash_attention_fwd_plain"),
+        (tflash, "flash_attention_bwd_dq_plain"),
+        (tflash, "flash_attention_bwd_dkv_plain"),
         (tdec, "decode_cross_attention_plain"),
         (tself, "decode_self_attention_plain"),
         (tself, "settled_self_attention_plain"),
@@ -221,6 +224,8 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     g = torch.Generator(device=cuda).manual_seed(0)
     rnd = lambda *s: torch.randn(*s, generator=g, device=cuda)
     tflash.flash_attention_tmaj(rnd(2, 64, 256), rnd(2, 64, 256), rnd(2, 64, 256))
+    qkv = [rnd(1, 70, 2, 64).requires_grad_() for _ in range(3)]
+    tflash.flash_attention(*qkv).sum().backward()
     kt = torch.zeros((2, 2, 32, 512), dtype=torch.int8, device=cuda)
     for group, q in ((1, rnd(2, 2, 64)), (3, rnd(2, 2, 3, 64))):
         tdec.decode_cross_attention(q, kt, kt, kv_len=300, packed_int4=True, group=group)
@@ -249,3 +254,98 @@ def test_bf16_logits_are_f32_sums(cuda):
     assert got.dtype == torch.float32 and got.shape == (3, 1, 1000)
     # f32 summation order only; a bf16 rounding would show at ~4e-3 relative
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| over max |ref|: bf16 results are checked against the
+    plain f32 math relative to their scale."""
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def _flash_inputs(cuda, seed, b, q_len, kv_len, h, dtype, mask):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rnd = lambda t: torch.randn(b, t, h, 64, generator=g, device=cuda).to(dtype)
+    q, k, v, do = rnd(q_len), rnd(kv_len), rnd(kv_len), rnd(q_len)
+    m = None
+    if mask == "padding":  # key padding, as the Qformer's masks
+        lens = torch.tensor([kv_len, kv_len // 2 + 1][:b], device=cuda)
+        valid = torch.arange(kv_len, device=cuda)[None] < lens[:, None]
+        m = torch.where(valid, 0.0, -1e9)[:, None, None, :]
+    elif mask == "causal":  # (q, kv), -inf above the diagonal
+        i = torch.arange(q_len, device=cuda)[:, None]
+        j = torch.arange(kv_len, device=cuda)[None, :]
+        m = torch.where(j <= i + (kv_len - q_len), 0.0, float("-inf"))
+    return q, k, v, do, m
+
+
+FLASH_CASES = [  # (b, q_len, kv_len, heads, mask)
+    (2, 256, 256, 3, None), (2, 301, 301, 2, None), (1, 75, 130, 2, None),
+    (2, 160, 160, 2, "padding"), (1, 192, 192, 2, "causal"), (8, 1516, 1516, 2, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain(cuda, case, dtype):
+    """The forward (out and lse) and both backward kernels against their
+    plain versions on the same inputs (ragged tiles, q_len != kv_len, both
+    mask forms)."""
+    b, q_len, kv_len, h, mask = case
+    q, k, v, do, m = _flash_inputs(cuda, q_len, b, q_len, kv_len, h, dtype, mask)
+    n = [w.launches for w in (tflash.flash_attention_fwd, tflash.flash_attention_bwd_dq,
+                              tflash.flash_attention_bwd_dkv)]
+    out, lse = tflash.flash_attention_fwd(q, k, v, m)
+    ref_out, ref_lse = tflash.flash_attention_fwd_plain(q, k, v, m)
+    delta = tflash.flash_delta(ref_out, do)
+    dq = tflash.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, m)
+    dk, dv = tflash.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, m)
+    torch.cuda.synchronize()
+    assert [w.launches for w in (tflash.flash_attention_fwd, tflash.flash_attention_bwd_dq,
+                                 tflash.flash_attention_bwd_dkv)] == [x + 1 for x in n]
+    refs = (ref_out, tflash.flash_attention_bwd_dq_plain(q, k, v, do, ref_lse, delta, m),
+            *tflash.flash_attention_bwd_dkv_plain(q, k, v, do, ref_lse, delta, m))
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)  # f32 both ways
+    # f32: summation order and exp2f; bf16: operands and P, dS rounded to
+    # bf16 before their products, outputs rounded to bf16
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, ref in zip((out, dq, dk, dv), refs):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert _rel_err(got, ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES[:5])
+def test_flash_autograd_matches_plain(cuda, case):
+    """flash_attention's gradients (the three kernels behind the autograd
+    Function) against autograd through the plain f32 function."""
+    b, q_len, kv_len, h, mask = case
+    q, k, v, do, m = _flash_inputs(cuda, 7, b, q_len, kv_len, h, torch.float32, mask)
+    grads = []
+    for fn in (tflash.flash_attention, tflash.flash_attention_plain):
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        (fn(*qkv, m) * do).sum().backward()
+        grads.append([t.grad for t in qkv])
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, **F32_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_tmaj_grads_match_rowmajor(cuda):
+    """The transposed kernel's backward (row-major kernels on (bh, T, 1, d)
+    views) against the row-major route's gradients."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, h, t = 2, 2, 300
+    q, k, v = (torch.randn(b, t, h, 64, generator=g, device=cuda) for _ in range(3))
+    tm = lambda z: z.permute(0, 2, 3, 1).reshape(b * h, 64, t)
+    grads = []
+    for route in ("tmaj", "rowmajor"):
+        qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+        if route == "tmaj":
+            o = tflash.flash_attention_tmaj(*map(tm, qkv))
+        else:
+            o = tm(tflash.flash_attention(*qkv))
+        (o * o).sum().backward()
+        grads.append([x.grad for x in qkv])
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, **F32_TOL)

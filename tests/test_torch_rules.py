@@ -107,3 +107,39 @@ def test_mesh_and_other_caches_raise():
                dict(tmin_self_cache=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TSDecoder(dims, **kw).init_cache(2, 8)
+
+
+def _train_model(**ts):
+    from robustsq_whisper_torch.models import TSASRModel
+
+    dims = WhisperDims(n_audio_ctx=16, n_audio_state=32, n_audio_head=2, n_audio_layer=1,
+                       n_text_ctx=16, n_text_state=32, n_text_head=2, n_text_layer=1, n_vocab=50)
+    ts = TSEncoderConfig(num_query_tokens=2, num_hidden_layers=1, qformer_hidden_size=32,
+                         qformer_heads=2, qformer_intermediate_size=64, **ts)
+    return TSASRModel(dims, ts)
+
+
+def test_train_entry_points_raise_without_cuda(monkeypatch):
+    from robustsq_whisper_torch.train import TrainConfig, create_train_state, make_train_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_train_state(_train_model(), TrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_step(_train_model(), TrainConfig())
+
+
+def test_training_paths_outside_the_slice_raise():
+    """Sequence parallelism, FSDP / meshes and embedding enrollment raise
+    NotImplementedError naming their ROADMAP item."""
+    from robustsq_whisper_torch.train import TrainConfig, create_train_state, make_train_step
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+        _train_model(sequence_parallel=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+        _train_model(enroll_type="embedding")
+    for kw, cfg in ((dict(), TrainConfig(fsdp=True)), (dict(mesh=object()), TrainConfig())):
+        with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+            create_train_state(_train_model(), cfg, device="cpu", **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+            make_train_step(_train_model(), cfg, device="cpu", **kw)
