@@ -5,26 +5,33 @@
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
-1. build the five CUDA kernels from ``robustsq_whisper_torch/csrc`` (one
-   ``nvcc`` per source, all started together) and print the build time;
+1. build the seven CUDA kernel libraries from ``robustsq_whisper_torch/csrc``
+   (one ``nvcc`` per source, all started together) and print the build time;
 2. hold each kernel against its plain PyTorch version at the Whisper-medium
    main-path shapes (batch 4, beam 5), print the errors, the kernel's median
    time, the plain version's, a library call's where one computes the same
-   function, and the least time the card could take (bound); the beam
-   reorder is timed at the JAX bench's beam shape too;
-3. small-input agreement: a small model greedy-decodes, and beam-decodes
-   with beam 3 (eager reorder, and ``defer_reorder=4``), the same input with
-   the kernels (f32, on the card) and with the plain versions (on the CPU);
-   the tokens must be identical;
+   function, and the least time the card could take (bound); both beam
+   reorders are timed at the JAX bench's beam shape too;
+3. small-input agreement: a small model decodes the same input with the
+   kernels (f32, on the card) and with the plain versions (on the CPU):
+   greedy over every self-cache layout (dense flat, 5-D dense and int8, flat
+   int8, time-minor), beam 3 over the dense flat cache (eager reorder, and
+   ``defer_reorder=4``), the 5-D cache and the int8 flat cache, and
+   speculative decode with a self-draft and with a separate 1-layer draft;
+   the tokens (and acceptance counters) must be identical;
 4. the main paths at full Whisper-medium width and depth (bf16, seeded
    random weights, the bench lanes' settings), each a
    ``TranscriptionEngine.transcribe`` on 4 synthetic (30 s speech, 10 s
    enrollment) pairs, 32 new tokens at most: greedy with
-   ``prefill_quantized`` off and on, then beam 5 (20 beam rows) with the
-   eager reorder and with ``defer_reorder=8``. Every kernel's launch count
-   is set to 0 just before each run, and each kernel of that run's path
-   must show > 0 after it. A phase-timed greedy pass prints frontend,
-   encode, cross-KV + prefill and token-loop times;
+   ``prefill_quantized`` off and on, beam 5 (20 beam rows) with the eager
+   reorder and with ``defer_reorder=8``, then greedy over the int8 flat and
+   the time-minor caches, beam 5 over the 5-D and the int8 flat caches, and
+   speculative decode (gamma 10, a 1-layer self-draft, the 5-D cache). Every
+   kernel's launch count is set to 0 just before each run, and each kernel
+   of that run's path must show > 0 after it. A phase-timed greedy pass
+   prints frontend, encode, cross-KV + prefill and token-loop times;
+   speculative decode must give the 5-D greedy's tokens with the decoder in
+   f32 (in bf16 the share of identical tokens is printed);
 5. training: the three flash-attention training kernels (forward, dQ,
    dK/dV) against their plain versions at the medium training shape
    (batch 8 x 16 heads, T = 1500 + 16, bf16) and with a mask at a smaller
@@ -42,7 +49,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 The next-to-last lines are the JSON kernel record and the card's name and
 power limit (``nvidia-smi``); the last line is the JSON ok record. A
 kernel's ``launches`` are those of the path it was ported for (greedy, the
-eager beam path, the deferred one for the settled kernel, one full-mode
+eager beam path, the deferred one for the settled kernel, the int8 flat,
+time-minor and 5-D paths for the kernels of those caches, one full-mode
 training step for the training kernels); ``launches_by_path`` has every
 path's. Needs one CUDA device; without one it exits non-zero and prints no
 result.
@@ -51,6 +59,7 @@ result.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import itertools
 import json
 import os
@@ -337,6 +346,121 @@ def check_kernels(torch, dev, batch: int, max_new: int, beam: int):
         ms=time_ms(torch, call, 50), plain_ms=time_ms(torch, plain, 10),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
+    # 3b. decode self attention, int8 flat cache (int8 K/V, bf16 scales)
+    t_pad = -(-(17 + 4 + max_new) // 8) * 8
+    qd, kn, vn = (
+        torch.randn(batch, n_state, generator=g, device=dev).bfloat16()
+        for _ in range(3)
+    )
+    cache8 = sa.quantize_flat_kv(
+        *(torch.randn(layers, batch, t_pad, n_state, generator=g, device=dev)
+          for _ in range(2)), heads,
+    )
+    call = lambda: sa.decode_self_attention(qd, kn, vn, cache8, pos, li, heads=heads)
+    plain = lambda: sa.decode_self_attention_plain(qd, kn, vn, cache8, pos_i, 7, heads)
+    err = (call().float() - plain().float()).abs().max().item()
+    # a live position's int8 K and V, and its K and V scales (bf16 lanes
+    # [0, 2 * heads) of the scale row; the rest of the row is not needed)
+    b_ms, b_by = bound(
+        batch * pos_i * (2 * n_state + 4 * heads) + 4 * batch * n_state * 2,
+        4 * batch * n_state * (pos_i + 1), "bf16",
+    )
+    rows.append(dict(
+        name="decode_self_attention_int8", route="cuda",
+        source="robustsq_whisper_torch/csrc/decode_self_attention.cu",
+        replaces=f"{TPU_SRC}/self_attention.py:103",
+        max_abs_err=err, tol=2e-2,  # bf16 output rounding
+        ms=time_ms(torch, call, 50), plain_ms=time_ms(torch, plain, 10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+    del cache8
+
+    # 2c. the cross kernel with return_state over the time-minor self cache
+    # (dense bf16, T_pad a multiple of 128), at the greedy path's last step
+    t_min = -(-(17 + 4 + max_new) // 128) * 128
+    kt, vt = (
+        torch.randn(layers, batch, heads, hd, t_min, generator=g, device=dev).bfloat16()
+        for _ in range(2)
+    )
+    q3 = torch.randn(batch, heads, hd, generator=g, device=dev).bfloat16()
+    call = lambda: xa.decode_cross_attention(
+        q3, kt, vt, kv_len=pos, layer_idx=li, return_state=True
+    )
+    qs = q3.float()[:, :, None] * hd**-0.5
+    plain = lambda: xa.decode_cross_attention_plain(qs, kt, vt, pos, 7, False, True)
+    err = max((a - b.reshape(a.shape)).abs().max().item()
+              for a, b in zip(call(), plain()))
+    kr, vr = (x[7].transpose(-1, -2)[:, :, :pos_i].contiguous() for x in (kt, vt))
+    qr = q3[:, :, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b_ms, b_by = bound(
+        2 * batch * heads * hd * pos_i * 2 + batch * heads * (hd * 2 + hd * 4 + 8),
+        4 * batch * heads * hd * pos_i, "f32",
+    )
+    rows.append(dict(
+        name="decode_cross_attention_state", route="cuda",
+        source="robustsq_whisper_torch/csrc/decode_cross_attention.cu",
+        replaces=f"{TPU_SRC}/decode_attention.py:156",
+        max_abs_err=err, tol=1e-4,  # f32 math, __expf vs torch.exp
+        ms=time_ms(torch, call, 50), plain_ms=time_ms(torch, plain, 10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, lambda: sdpa(qr, kr, vr), 50),
+    ))
+    del kt, vt
+
+    # 7b. the flattened zero-tail reorder of the 5-D cache (two bf16
+    # leaves, out of place) at the beam-5 main path's last step (the cache
+    # length padded to a multiple of 4, as the beam decoder pads it) and
+    # at the JAX bench's beam shape
+    shapes = {
+        "main path": (rb, -(-(17 + 4 + max_new) // 4) * 4, 17 + 4 + max_new - 2),
+        "bench beam": BENCH_BEAM,
+    }
+    for where, (n_rows, t_len, live) in shapes.items():
+        leaves = tuple(
+            torch.randn(layers, n_rows, t_len, heads, hd, generator=g, device=dev).bfloat16()
+            for _ in range(2)
+        )
+        src = torch.randperm(n_rows, generator=g, device=dev)
+        src[1::3] = src[0::3][: src[1::3].numel()]
+        s_full = t_len * n_state // 128
+        e = bg.live_rows(live, s_full, t_len)
+        got = bg.beam_reorder_cache(leaves, src, live, t_len)
+        ref = [bg.beam_reorder_flat_plain(x, src, e) for x in leaves]
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+        del got, ref
+        call = lambda: bg.beam_reorder_cache(leaves, src, live, t_len)
+        plain = lambda: [bg.beam_reorder_flat_plain(x, src, e) for x in leaves]
+
+        def library():
+            out = []
+            for x in leaves:
+                flat = x.view(layers, n_rows, -1)
+                head = flat[:, :, :e * 128].index_select(1, src)
+                tail = torch.zeros((layers, n_rows, flat.shape[2] - e * 128),
+                                   dtype=x.dtype, device=dev)
+                out.append(torch.cat([head, tail], dim=2))
+            return out
+
+        row_b = s_full * 128 * 2
+        b_ms, b_by = bound(2 * layers * n_rows * (e * 128 * 2 + row_b) + n_rows * 8, 0, "bf16")
+        row = dict(
+            name="beam_reorder_cache_flat", route="cuda",
+            source="robustsq_whisper_torch/csrc/beam_reorder_cache.cu",
+            replaces=f"{TPU_SRC}/beam_gather.py:69",
+            max_abs_err=err, tol=0.0,  # a copy: exact
+            ms=time_ms(torch, call, 20), plain_ms=time_ms(torch, plain, 5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, library, 5),
+        )
+        log(f"beam_reorder_cache_flat at the {where} shape ({layers} x {n_rows} rows "
+            f"x {e} of {s_full} rows of 128, 2 bf16 leaves of (T {t_len}, {heads}, {hd})): "
+            f"max_abs_err {err} ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+            f"bound_ms {b_ms:.4f} library_ms (index_select + zero tail) "
+            f"{row['library_ms']:.4f}")
+        if where == "main path":
+            rows.append(row)
+        del leaves
+    torch.cuda.empty_cache()
+
     for r in rows:
         log(
             f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
@@ -349,11 +473,44 @@ def check_kernels(torch, dev, batch: int, max_new: int, beam: int):
     return rows
 
 
+def decoder_with(dec, **flags):
+    """A TSDecoder built with ``dec``'s settings but the cache flags in
+    ``flags`` (``self_kv_bits``, ``flat_self_cache``, ``tmin_self_cache``),
+    holding ``dec``'s weight tensors (shared, not copied)."""
+    import torch
+    from robustsq_whisper_torch.models import TSDecoder
+
+    td = dec.decoder
+    kw = dict(
+        startofprev_token=dec.startofprev_token, use_spk_prompt=dec.use_spk_prompt,
+        cross_kv_bits=td.cross_kv_bits, self_kv_bits=td.self_kv_bits,
+        flat_self_cache=td.flat_self_cache, tmin_self_cache=td.tmin_self_cache,
+    )
+    with torch.device(td.token_embedding.weight.device):  # a quick init there
+        new = TSDecoder(dec.dims, **{**kw, **flags})
+    new.load_state_dict(dec.state_dict(), assign=True)
+    return new.eval()
+
+
+def decode_fn(dec, cfg, device, draft=None):
+    """``run(memory, prompt) -> (tokens, scores[, stats])`` for ``cfg``:
+    the speculative decoder (with acceptance counters) or beam / greedy."""
+    from robustsq_whisper_torch.decode.search import build_beam_decoder
+    from robustsq_whisper_torch.decode.speculative import build_speculative_decoder
+
+    if cfg.speculative_gamma > 0:
+        return build_speculative_decoder(dec, cfg, device, return_stats=True, draft=draft)
+    return build_beam_decoder(dec, cfg, device=device)
+
+
 def check_small_agreement(torch, dev) -> None:
     """Phase 3: kernels (card, f32) and plain versions (CPU) decode a small
-    model's input to the same tokens, greedy and with beam 3 (eager and
-    deferred reorder)."""
-    from robustsq_whisper_torch.decode.search import DecodeConfig, build_beam_decoder
+    model's input to the same tokens: greedy over every self-cache layout,
+    beam 3 (eager and deferred reorder over the dense flat cache, eager over
+    the 5-D cache, whose reorder is the flattened kernel, and over the int8
+    flat cache) and speculative decode with a self-draft and with a
+    separate 1-layer draft."""
+    from robustsq_whisper_torch.decode.search import DecodeConfig
     from robustsq_whisper_torch.init import init_params
     from robustsq_whisper_torch.models import (
         QFormerTSEncoder, TSDecoder, TSEncoderConfig, WhisperDims,
@@ -371,6 +528,9 @@ def check_small_agreement(torch, dev) -> None:
     )
     enc = init_params(QFormerTSEncoder(dims, ts), 3).eval()
     dec = init_params(TSDecoder(dims, startofprev_token=3, cross_kv_bits=4), 4)
+    draft = init_params(
+        TSDecoder(dims.replace(n_text_layer=1), startofprev_token=3, cross_kv_bits=4), 7
+    )
     rng = np.random.default_rng(5)
     mel = torch.from_numpy(rng.standard_normal((2, 80, 512)).astype(np.float32))
     emel = torch.from_numpy(rng.standard_normal((2, 80, 120)).astype(np.float32))
@@ -378,10 +538,20 @@ def check_small_agreement(torch, dev) -> None:
     # the prefix is 1 + 4 + 2 = 7 positions, so with R = 8 the deferred
     # reorder flushes a non-empty settled prefix at position 16
     base = dict(max_new_tokens=16, eot=2, init_tokens=(1, 4), quantize_cross_kv=True)
-    cfgs = {
-        "greedy": DecodeConfig(**base),
-        "beam 3": DecodeConfig(**base, beam_size=3),
-        "beam 3 defer_reorder=4": DecodeConfig(**base, beam_size=3, defer_reorder=4),
+    five = dict(flat_self_cache=False)
+    spec = dict(base, speculative_gamma=4, draft_layers=1)
+    cases = {  # name: (decoder flags, config, separate draft)
+        "greedy": ({}, DecodeConfig(**base), None),
+        "beam 3": ({}, DecodeConfig(**base, beam_size=3), None),
+        "beam 3 defer_reorder=4": ({}, DecodeConfig(**base, beam_size=3, defer_reorder=4), None),
+        "greedy 5-D": (five, DecodeConfig(**base), None),
+        "greedy 5-D int8": (dict(five, self_kv_bits=8), DecodeConfig(**base), None),
+        "greedy flat int8": (dict(self_kv_bits=8), DecodeConfig(**base), None),
+        "greedy time-minor": (dict(tmin_self_cache=True), DecodeConfig(**base), None),
+        "beam 3 5-D": (five, DecodeConfig(**base, beam_size=3), None),
+        "beam 3 flat int8": (dict(self_kv_bits=8), DecodeConfig(**base, beam_size=3), None),
+        "speculative self-draft": (five, DecodeConfig(**spec), None),
+        "speculative separate draft": (five, DecodeConfig(**spec), draft),
     }
     mems = {}
     for where in ("cpu", dev):
@@ -407,17 +577,25 @@ def check_small_agreement(torch, dev) -> None:
     inputs["random memory"][str(dev)] = tuple(
         x.to(dev) for x in inputs["random memory"]["cpu"]
     )
-    for (src, pair), (name, cfg) in itertools.product(inputs.items(), cfgs.items()):
+    for (src, pair), (name, (flags, cfg, sep)) in itertools.product(
+        inputs.items(), cases.items()
+    ):
         out = {}
         for where in ("cpu", dev):
-            run = build_beam_decoder(copy.deepcopy(dec), cfg, device=where)
-            tokens, scores = run(*pair[str(where)])
-            out[str(where)] = (tokens.cpu(), scores.cpu())
-        (t_cpu, s_cpu), (t_gpu, s_gpu) = out["cpu"], out[str(dev)]
+            d = decoder_with(copy.deepcopy(dec), **flags)
+            run = decode_fn(d, cfg, where, None if sep is None else copy.deepcopy(sep))
+            res = run(*pair[str(where)])
+            out[str(where)] = [x.cpu() for x in res[:2]] + [
+                {k: v.cpu() for k, v in res[2].items()} if len(res) > 2 else {}
+            ]
+        (t_cpu, s_cpu, st_cpu), (t_gpu, s_gpu, st_gpu) = out["cpu"], out[str(dev)]
         s_err = (s_cpu - s_gpu).abs().max().item()
+        same_stats = all(torch.equal(st_cpu[k], st_gpu[k]) for k in st_cpu)
         log(f"small agreement, {name} on {src}: score max_abs_err {s_err:.3e} "
-            f"(tol 1e-3, f32); tokens card {t_gpu.tolist()} cpu {t_cpu.tolist()}")
-        ok = ok and s_err <= 1e-3 and torch.equal(t_cpu, t_gpu)
+            f"(tol 1e-3, f32); tokens card {t_gpu.tolist()} cpu {t_cpu.tolist()}"
+            + (f"; acceptance card {({k: v.tolist() for k, v in st_gpu.items()})} "
+               f"equal on the CPU {same_stats}" if st_cpu else ""))
+        ok = ok and s_err <= 1e-3 and torch.equal(t_cpu, t_gpu) and same_stats
     if not ok:
         raise AssertionError("kernels and plain versions disagree on a small input")
 
@@ -714,7 +892,10 @@ def launch_counters():
         "decode_cross_attention": (xa.decode_cross_attention, "launches"),
         "decode_cross_attention_grouped": (xa.decode_cross_attention, "grouped_launches"),
         "decode_self_attention": (sa.decode_self_attention, "launches"),
+        "decode_self_attention_int8": (sa.decode_self_attention, "int8_launches"),
+        "decode_cross_attention_state": (xa.decode_cross_attention, "state_launches"),
         "beam_reorder_cache": (bg.beam_reorder_cache, "launches"),
+        "beam_reorder_cache_flat": (bg.beam_reorder_cache, "flat_launches"),
         "settled_self_attention": (sa.settled_self_attention, "launches"),
         "flash_attention": (fa.flash_attention_fwd, "launches"),
         "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq, "launches"),
@@ -788,7 +969,10 @@ def engine_for(torch, dev, enc, dec, batch: int, max_new: int, **cfg):
 GREEDY_KERNELS = ("flash_attention_tmaj", "decode_cross_attention", "decode_self_attention")
 OWN_PATH = {  # the path a kernel was ported for, where not greedy's
     "decode_cross_attention_grouped": "beam 5 eager",
+    "decode_self_attention_int8": "greedy self_kv_bits=8",
+    "decode_cross_attention_state": "greedy tmin_self_cache",
     "beam_reorder_cache": "beam 5 eager",
+    "beam_reorder_cache_flat": "beam 5 flat_self_cache=False",
     "settled_self_attention": "beam 5 defer_reorder=8",
     "flash_attention": "train full",
     "flash_attention_bwd_dq": "train full",
@@ -901,6 +1085,72 @@ def run_beam_paths(torch, dev, models, batch: int, max_new: int):
     return launches, (engines, memory, prompt)
 
 
+LAYOUT_PATHS = {  # path: (decoder flags, config, kernels it must launch)
+    "greedy self_kv_bits=8": (
+        dict(self_kv_bits=8), dict(),
+        ("decode_self_attention_int8", "decode_cross_attention", "flash_attention_tmaj"),
+    ),
+    "greedy tmin_self_cache": (
+        dict(tmin_self_cache=True), dict(),
+        ("decode_cross_attention_state", "decode_cross_attention"),
+    ),
+    "beam 5 flat_self_cache=False": (
+        dict(flat_self_cache=False), dict(beam_size=5),
+        ("beam_reorder_cache_flat", "decode_cross_attention_grouped"),
+    ),
+    "beam 5 self_kv_bits=8": (
+        dict(self_kv_bits=8), dict(beam_size=5),
+        ("decode_self_attention_int8", "beam_reorder_cache",
+         "decode_cross_attention_grouped"),
+    ),
+    # the JAX bench's trained-lane settings (gamma 10, a 1-layer draft),
+    # self-drafting over the 5-D cache
+    "speculative gamma=10": (
+        dict(flat_self_cache=False), dict(speculative_gamma=10, draft_layers=1),
+        ("decode_cross_attention", "flash_attention_tmaj"),
+    ),
+}
+
+
+def run_layout_paths(torch, dev, models, batch: int, max_new: int):
+    """Phase 4, the other self-cache layouts and speculative decode: a
+    counted transcribe each. Then speculative decode against greedy over
+    the 5-D cache on one encoder output: with the decoder in f32 the
+    tokens must be identical; in bf16 the share of identical tokens and the
+    acceptance counters are printed (a multi-token verify rounds otherwise
+    than one-token steps, and random weights leave near-ties)."""
+    from robustsq_whisper_torch.decode.pipeline import chunked_encode
+    from robustsq_whisper_torch.decode.search import strip_eot
+
+    dims, enc, dec = models
+    items = synthetic_pairs(batch, seed=0)
+    launches = {}
+    for path, (flags, cfg, expect) in LAYOUT_PATHS.items():
+        engine = engine_for(torch, dev, enc, decoder_with(dec, **flags), batch, max_new, **cfg)
+        _, launches[path] = counted_transcribe(torch, engine, items, path, expect)
+    memory, prompt = chunked_encode(engine.encode, *engine.stage(items), 0)
+    dcfg = engine.dcfg
+    greedy_cfg = dataclasses.replace(dcfg, speculative_gamma=0)
+    for name, d in (("bf16", dec), ("f32", copy.deepcopy(dec).float())):
+        d5 = decoder_with(d, flat_self_cache=False)
+        g_tok, g_score = decode_fn(d5, greedy_cfg, dev)(memory, prompt)
+        s_tok, s_score, st = decode_fn(d5, dcfg, dev)(memory, prompt)
+        same = (g_tok == s_tok).float().mean().item()
+        n_tok = [len(r) for r in strip_eot(g_tok.cpu().tolist(), dcfg.eot)]
+        log(f"speculative vs 5-D greedy at medium, decoder {name}: identical token share "
+            f"{same:.4f}, score max_abs_diff {(g_score - s_score).abs().max().item():.3e}, "
+            f"greedy tokens per row {n_tok}; counters "
+            f"{ {k: v.tolist() for k, v in st.items()} }")
+        if not (torch.isfinite(s_score).all() and s_tok.shape == (batch, max_new)):
+            raise AssertionError("speculative tokens out of shape or scores not finite")
+        if name == "f32" and not torch.equal(g_tok, s_tok):
+            raise AssertionError("f32 speculative tokens differ from the 5-D greedy's")
+        del d5
+    del d
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile_runs(torch, greedy, beam, train) -> None:
     """Device busy share of the encode, the greedy run, the two beam runs
     and one full-mode training step, by profiler; last, because the
@@ -955,9 +1205,11 @@ def main() -> int:
     models = medium_models(torch, dev)
     greedy_launches, greedy = run_main_path(torch, dev, models, batch, max_new)
     beam_launches, beam_run = run_beam_paths(torch, dev, models, batch, max_new)
+    layout_launches = run_layout_paths(torch, dev, models, batch, max_new)
     train_launches, train_run = run_train_paths(torch, dev)
     profile_runs(torch, greedy, beam_run, train_run)
-    by_path = {"greedy": greedy_launches, **beam_launches, **train_launches}
+    by_path = {"greedy": greedy_launches, **beam_launches, **layout_launches,
+               **train_launches}
     for r in rows:  # launches on the path this row's kernel was ported for
         r["launches"] = by_path[OWN_PATH.get(r["name"], "greedy")][r["name"]]
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}

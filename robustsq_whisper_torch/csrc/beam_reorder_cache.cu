@@ -1,4 +1,5 @@
-// Beam reorder of the flat decode cache, in place.
+// Beam reorder of the decode cache: the flat cache in place, every other
+// leaf out of place with its dead tail zero-filled.
 //
 // Replaces the TPU kernel `_permute4d_kernel` (JAX package,
 // ops/beam_gather.py, entry `beam_reorder_cache`, 4-D leaves): for every
@@ -22,6 +23,17 @@
 // an SM. The data is moved as 16-byte words whatever its type: bf16, int8
 // and f32 leaves are the same bytes to this kernel. Both K and V leaves
 // ride one launch.
+//
+// Entry `beam_reorder_cache_flat` replaces the TPU kernel `_permute_kernel`
+// (the flattened route of the same JAX entry, for leaves that are not
+// (layers, rows, T % 8, n_state % 128): the 5-D cache and its f32 scale
+// leaves). Each leaf's row payload is seen as bytes; out of place (the TPU
+// call is not aliased), out[l, i, :live] = x[l, src[i], :live] and
+// out[l, i, live:] = 0, written without reading x there. The wrapper
+// computes `live` from the TPU kernel's rule (whole chunks of 32 rows of
+// 128 elements, at least one). Bound: bytes, the live bytes read plus every
+// byte written. One thread moves 16-byte words of one (leaf, layer, row);
+// there is no race, since no output aliases an input.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,6 +67,33 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+constexpr int WORDS_PER_THREAD = 4;
+
+__global__ void __launch_bounds__(THREADS)
+    reorder_flat_kernel(const int* __restrict__ src,
+                        const uint4* __restrict__ x0,
+                        const uint4* __restrict__ x1, uint4* __restrict__ o0,
+                        uint4* __restrict__ o1, int layers, int rows,
+                        long long row_words, long long live_words) {
+  const int row = blockIdx.y;
+  const int leaf = blockIdx.z / layers, layer = blockIdx.z % layers;
+  const uint4* x = leaf ? x1 : x0;
+  uint4* o = leaf ? o1 : o0;
+  const long long base = (long long)layer * rows;
+  const uint4* in = x + (base + __ldg(src + row)) * row_words;
+  uint4* out = o + (base + row) * row_words;
+  const long long w0 = (long long)blockIdx.x * THREADS * WORDS_PER_THREAD;
+#pragma unroll
+  for (int k = 0; k < WORDS_PER_THREAD; ++k) {
+    const long long w = w0 + k * THREADS + threadIdx.x;
+    if (w < live_words) {
+      out[w] = in[w];
+    } else if (w < row_words) {
+      out[w] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
 }  // namespace
 
 // src: (rows,) device int32, each in [0, rows). x0 (and x1 when leaves is
@@ -85,5 +124,31 @@ extern "C" int beam_reorder_cache(const void* src, void* x0, void* x1,
   reorder_kernel<<<grid, THREADS, (size_t)smem, (cudaStream_t)stream>>>(
       (const int*)src, (char*)x0, (char*)x1, layers, rows,
       (long long)t_pad * row_bytes, row_bytes, slice);
+  return (int)cudaGetLastError();
+}
+
+// src: (rows,) device int32, each in [0, rows). x0 (and x1 when leaves is
+// 2): (layers, rows, row_bytes) contiguous, 16-byte aligned; o0 (o1): fresh
+// outputs of the same shape. Writes out[l, i, :live_bytes] = x[l, src[i],
+// :live_bytes] and zeros over the rest of each row. Returns
+// cudaGetLastError() after the launch.
+extern "C" int beam_reorder_cache_flat(const void* src, const void* x0,
+                                       const void* x1, void* o0, void* o1,
+                                       int leaves, int layers, int rows,
+                                       int row_bytes, int live_bytes,
+                                       void* stream) {
+  if (leaves < 1 || leaves > 2 ||
+      (leaves == 2 && (x1 == nullptr || o1 == nullptr)) || layers <= 0 ||
+      rows <= 0 || rows > 65535 || row_bytes <= 0 || row_bytes % 16 != 0 ||
+      live_bytes <= 0 || live_bytes > row_bytes || live_bytes % 16 != 0 ||
+      (long long)leaves * layers > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long words = row_bytes / 16;
+  const long long per_block = (long long)THREADS * WORDS_PER_THREAD;
+  const dim3 grid((unsigned)((words + per_block - 1) / per_block), rows,
+                  leaves * layers);
+  reorder_flat_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)src, (const uint4*)x0, (const uint4*)x1, (uint4*)o0,
+      (uint4*)o1, layers, rows, words, live_bytes / 16);
   return (int)cudaGetLastError();
 }

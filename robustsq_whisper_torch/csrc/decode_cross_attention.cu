@@ -13,6 +13,15 @@
 // is exact f32; the TPU route that truncates q and p to one bf16 MXU pass
 // is not copied.
 //
+// With `return_state` (the time-minor self cache reads through this kernel
+// and merges its new token outside) the kernel also writes each query's
+// online-softmax state: m, the largest live score, and l, the sum of
+// exp(s - m) over the live positions. A query with no live position
+// (kv_len == 0) gets m = -1e30 (the TPU kernel's NEG_INF), l = 0 and a zero
+// output, which weighs exactly 0 when the caller merges it. The TPU
+// option `dynamic_grid` (read only the live chunks) is what this kernel
+// always does.
+//
 // Bound on the card: bytes. Each (batch, head) reads d/2 * kv_len bytes of
 // packed K and as many of V and does ~4 d kv_len operations per query on
 // them: about 8 * group operations per byte, below the ridge for every
@@ -124,7 +133,8 @@ __global__ void __launch_bounds__(THREADS)
                         const void* __restrict__ vt,
                         const int* __restrict__ layer_idx,
                         const int* __restrict__ kv_len_ptr,
-                        float* __restrict__ out, int batch, int heads,
+                        float* __restrict__ out, float* __restrict__ m_out,
+                        float* __restrict__ l_out, int batch, int heads,
                         int t_pad) {
   constexpr int DD = MODE == PACKED4 ? HD / 2 : HD;  // stored rows
   constexpr int SLICES = THREADS / DD;               // pass-3 slices per row
@@ -242,6 +252,13 @@ __global__ void __launch_bounds__(THREADS)
       if (MODE == PACKED4) o[row + HD / 2] = a_hi[g] * inv;
     }
   }
+  if (m_out != nullptr && tid == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      m_out[head * G + g] = m[g] == -INFINITY ? -1e30f : m[g];
+      l_out[head * G + g] = l[g];
+    }
+  }
 }
 
 struct Args {
@@ -251,6 +268,8 @@ struct Args {
   const int* layer_idx;
   const int* kv_len;
   float* out;
+  float* m_out;  // NULL unless the state is asked for
+  float* l_out;
   int batch, heads, t_pad;
 };
 
@@ -270,8 +289,8 @@ int launch(const Args& a, cudaStream_t st) {
     opted_in = true;
   }
   decode_cross_kernel<MODE, G><<<grid, THREADS, smem, st>>>(
-      a.q, a.kt, a.vt, a.layer_idx, a.kv_len, a.out, a.batch, a.heads,
-      a.t_pad);
+      a.q, a.kt, a.vt, a.layer_idx, a.kv_len, a.out, a.m_out, a.l_out,
+      a.batch, a.heads, a.t_pad);
   return (int)cudaGetLastError();
 }
 
@@ -296,19 +315,23 @@ int launch_group(const Args& a, int group, cudaStream_t st) {
 // batch, heads, rows, t_pad) with rows = head_dim / 2 for mode 0 (packed
 // int4), head_dim for modes 1 (int8), 2 (bf16), 3 (f32). layer_idx: device
 // int32 scalar or NULL (then layers = 1); kv_len: device int32 scalar.
-// out: (batch, heads, group, head_dim) f32. group is 1..8 with
-// group * t_pad <= 49152. Returns cudaGetLastError() after the launch.
+// out: (batch, heads, group, head_dim) f32. m_out, l_out: (batch, heads,
+// group) f32, both NULL or both given (the online-softmax state). group is
+// 1..8 with group * t_pad <= 49152. Returns cudaGetLastError() after the
+// launch.
 extern "C" int decode_cross_attention(const void* q, const void* kt,
                                       const void* vt, const void* layer_idx,
-                                      const void* kv_len, void* out, int batch,
+                                      const void* kv_len, void* out,
+                                      void* m_out, void* l_out, int batch,
                                       int heads, int head_dim, int t_pad,
                                       int group, int mode, void* stream) {
   if (head_dim != HD || t_pad <= 0 || t_pad % 4 != 0 || group < 1 ||
       group > MAX_G || group * t_pad > MAX_SCORES || batch <= 0 ||
-      batch > 65535 || heads <= 0)
+      batch > 65535 || heads <= 0 || (m_out == nullptr) != (l_out == nullptr))
     return (int)cudaErrorInvalidValue;
   const Args a{(const float*)q, kt, vt, (const int*)layer_idx,
-               (const int*)kv_len, (float*)out, batch, heads, t_pad};
+               (const int*)kv_len, (float*)out, (float*)m_out, (float*)l_out,
+               batch, heads, t_pad};
   cudaStream_t st = (cudaStream_t)stream;
   switch (mode) {
     case PACKED4: return launch_group<PACKED4>(a, group, st);

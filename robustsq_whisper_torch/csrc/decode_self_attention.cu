@@ -7,8 +7,17 @@
 // T_pad, n_state) and the layer's slab picked by `layer_idx`. The new
 // token's K/V are separate operands and merge last, as on the TPU.
 //
+// The int8 cache (the TPU kernel's `quantized` branch, entry
+// `decode_self_attention_int8`) holds int8 K and V and one bf16 (layers,
+// batch, T_pad, 128) scale leaf: per (position, head), K's scale in lane
+// `head` and V's in lane `heads + head`. The K scale multiplies the score
+// after the dot; the V scale multiplies the softmax weight before the V
+// sum, while the normaliser l sums the raw weights. The new token's K/V are
+// exact and merge last.
+//
 // Bound on the card: bytes. Each (row, head) reads 2 * pos * d cache
-// values and does ~4 pos d operations on them: 1 operation per byte.
+// values (bf16 or f32; int8 plus two scales) and does ~4 pos d operations
+// on them.
 //
 // Design (first version): one block of 4 warps per (head, row). A warp
 // takes one cache position at a time; each lane holds 2 of the head's 64
@@ -23,6 +32,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -34,6 +46,10 @@ __device__ __forceinline__ float2 load2(const float* p) {
 }
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2((float)c.x, (float)c.y);
 }
 __device__ __forceinline__ void store2(float2 x, float* p) {
   *reinterpret_cast<float2*>(p) = x;
@@ -48,11 +64,14 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
+// C is the cache's element type: T (dense) or int8_t (then `sc` holds the
+// scales).
+template <typename T, typename C>
 __global__ void __launch_bounds__(WARPS * 32)
     decode_self_kernel(const T* __restrict__ q, const T* __restrict__ kn,
-                       const T* __restrict__ vn, const T* __restrict__ kc,
-                       const T* __restrict__ vc,
+                       const T* __restrict__ vn, const C* __restrict__ kc,
+                       const C* __restrict__ vc,
+                       const __nv_bfloat16* __restrict__ sc,
                        const int* __restrict__ layer_idx,
                        const int* __restrict__ pos_ptr, T* __restrict__ out,
                        int batch, int heads, int t_pad) {
@@ -69,21 +88,30 @@ __global__ void __launch_bounds__(WARPS * 32)
   float2 qv = load2(q + row);
   qv.x *= scale;
   qv.y *= scale;
-  const size_t cbase =
-      ((size_t)layer * batch + bi) * t_pad * n_state + hi * HD + 2 * lane;
+  const size_t slab = ((size_t)layer * batch + bi) * t_pad;
+  const size_t cbase = slab * n_state + hi * HD + 2 * lane;
+  constexpr bool QUANT = std::is_same<C, int8_t>::value;
 
   float m = -INFINITY, l = 0.f, a0 = 0.f, a1 = 0.f;
   for (int t = warp; t < pos; t += WARPS) {
     const size_t off = cbase + (size_t)t * n_state;
     const float2 kv = load2(kc + off);
     const float2 vv = load2(vc + off);
-    const float s = warp_sum(qv.x * kv.x + qv.y * kv.y);
+    float s = warp_sum(qv.x * kv.x + qv.y * kv.y);
+    float ks = 1.f, vs = 1.f;
+    if constexpr (QUANT) {
+      const __nv_bfloat16* row_sc = sc + (slab + t) * 128;
+      ks = __bfloat162float(row_sc[hi]);
+      vs = __bfloat162float(row_sc[heads + hi]);
+      s *= ks;
+    }
     const float m_new = fmaxf(m, s);
     const float alpha = __expf(m - m_new);  // 0 while m is -inf
     const float p = __expf(s - m_new);
+    const float pv = QUANT ? p * vs : p;
     l = l * alpha + p;
-    a0 = a0 * alpha + p * vv.x;
-    a1 = a1 * alpha + p * vv.y;
+    a0 = a0 * alpha + pv * vv.x;
+    a1 = a1 * alpha + pv * vv.y;
     m = m_new;
   }
   if (lane == 0) {
@@ -114,6 +142,24 @@ __global__ void __launch_bounds__(WARPS * 32)
   store2(make_float2(n0 / den, n1 / den), out + row);
 }
 
+template <typename T, typename C>
+int launch(const void* q, const void* k_new, const void* v_new,
+           const void* k_cache, const void* v_cache, const void* scales,
+           const void* layer_idx, const void* pos, void* out, int batch,
+           int heads, int t_pad, void* stream) {
+  const dim3 grid(heads, batch);
+  decode_self_kernel<T, C><<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)k_new, (const T*)v_new, (const C*)k_cache,
+      (const C*)v_cache, (const __nv_bfloat16*)scales, (const int*)layer_idx,
+      (const int*)pos, (T*)out, batch, heads, t_pad);
+  return (int)cudaGetLastError();
+}
+
+bool bad_shape(int batch, int heads, int head_dim, int t_pad) {
+  return head_dim != HD || t_pad <= 0 || batch <= 0 || batch > 65535 ||
+         heads <= 0;
+}
+
 }  // namespace
 
 // q, k_new, v_new, out: (batch, n_state); k_cache, v_cache: (layers, batch,
@@ -126,24 +172,35 @@ extern "C" int decode_self_attention(const void* q, const void* k_new,
                                      const void* pos, void* out, int batch,
                                      int heads, int head_dim, int t_pad,
                                      int dtype, void* stream) {
-  if (head_dim != HD || t_pad <= 0 || batch <= 0 || batch > 65535 ||
-      heads <= 0)
+  if (bad_shape(batch, heads, head_dim, t_pad)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch<float, float>(q, k_new, v_new, k_cache, v_cache, nullptr,
+                                layer_idx, pos, out, batch, heads, t_pad,
+                                stream);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_new, v_new, k_cache, v_cache, nullptr, layer_idx, pos, out,
+        batch, heads, t_pad, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The int8 cache: k8, v8 int8 (layers, batch, t_pad, n_state), scales bf16
+// (layers, batch, t_pad, 128) with K's scale of head h in lane h and V's in
+// lane heads + h (2 heads <= 128). q, k_new, v_new, out as above, dtype 0 =
+// f32, 1 = bf16.
+extern "C" int decode_self_attention_int8(
+    const void* q, const void* k_new, const void* v_new, const void* k8,
+    const void* v8, const void* scales, const void* layer_idx,
+    const void* pos, void* out, int batch, int heads, int head_dim,
+    int t_pad, int dtype, void* stream) {
+  if (bad_shape(batch, heads, head_dim, t_pad) || 2 * heads > 128)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(heads, batch);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    decode_self_kernel<float><<<grid, WARPS * 32, 0, st>>>(
-        (const float*)q, (const float*)k_new, (const float*)v_new,
-        (const float*)k_cache, (const float*)v_cache, (const int*)layer_idx,
-        (const int*)pos, (float*)out, batch, heads, t_pad);
-  } else if (dtype == 1) {
-    decode_self_kernel<__nv_bfloat16><<<grid, WARPS * 32, 0, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_new,
-        (const __nv_bfloat16*)v_new, (const __nv_bfloat16*)k_cache,
-        (const __nv_bfloat16*)v_cache, (const int*)layer_idx,
-        (const int*)pos, (__nv_bfloat16*)out, batch, heads, t_pad);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return launch<float, int8_t>(q, k_new, v_new, k8, v8, scales, layer_idx,
+                                 pos, out, batch, heads, t_pad, stream);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, int8_t>(q, k_new, v_new, k8, v8, scales,
+                                         layer_idx, pos, out, batch, heads,
+                                         t_pad, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,12 +1,14 @@
 """The serving program pair (encode, run) and the sub-batched encode.
 
 Mirrors the single-device Qformer case of the JAX package's
-``decode/pipeline.py::build_decode_fns``, greedy or beam search as
+``decode/pipeline.py::build_decode_fns``: greedy or beam search as
 ``DecodeConfig.beam_size`` says (``run`` returns the best beam of each
-utterance). Mesh serving (data or tensor parallel), joint CTC, speculative
-decode and embedding enrollment are later slices and raise
-``NotImplementedError``. The Kaldi data-dir batch job
-(``decode_dataset``) comes with ROADMAP A8's bench.
+utterance), or speculative greedy decode when ``speculative_gamma > 0``
+(``run`` then also returns the draft-acceptance counters, and ``draft``
+may give a separate draft decoder). Mesh serving (data or tensor
+parallel), joint CTC and embedding enrollment are later slices and raise
+``NotImplementedError``. The Kaldi data-dir batch job (``decode_dataset``)
+comes with ROADMAP A8's bench.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from .._device import resolve_device
 from ..models.ts_decoder import TSDecoder
 from ..models.ts_encoder import QFormerTSEncoder
 from .search import DecodeConfig, build_beam_decoder
+from .speculative import build_speculative_decoder
 
 
 def chunked_encode(enc_fn, feats, feats_lens, efeats, efeats_lens, chunk):
@@ -44,16 +47,28 @@ def build_decode_fns(
     dcfg: DecodeConfig,
     mesh: Optional[Any] = None,
     device="cuda",
+    draft: Optional[TSDecoder] = None,
 ):
     """``(encode, run)``: ``encode(mel, flens, emel, elens)`` returns the
-    encoder 4-tuple, ``run(memory, spk_prompt)`` returns (tokens, scores).
-    Moves both modules to ``device``."""
+    encoder 4-tuple, ``run(memory, spk_prompt)`` returns (tokens, scores[,
+    stats]). Moves the modules to ``device``."""
+    if draft is not None and not (dcfg.speculative_gamma > 0 and mesh is None):
+        raise ValueError(
+            "a draft decoder requires the single-device speculative path: "
+            "speculative_gamma > 0 and no mesh"
+        )
     if mesh is not None:
         raise NotImplementedError("multi-GPU serving is ROADMAP A15")
     if not isinstance(encoder, QFormerTSEncoder):
         raise NotImplementedError("embedding enrollment is ROADMAP A14")
     dev = resolve_device(device)
-    run = build_beam_decoder(decoder, dcfg, dev)
+    if dcfg.speculative_gamma > 0:
+        # the acceptance counters say whether speculation pays on these weights
+        run = build_speculative_decoder(
+            decoder, dcfg, dev, return_stats=True, draft=draft
+        )
+    else:
+        run = build_beam_decoder(decoder, dcfg, dev)
     encoder.to(dev).eval()
 
     @torch.inference_mode()

@@ -1,29 +1,39 @@
 """Batched KV-cache greedy and beam search for TS-Whisper decode.
 
 Mirrors the JAX package's ``decode/search.py``: the speaker-prompt prefix
-is prefilled once, then one token per step runs over the preallocated flat
-self cache (updated in place) and the cross K/V, quantized for the token
-loop when ``quantize_cross_kv`` is set. The loop runs eagerly; with
-``stop_early`` it ends once every row (every beam) emitted eot, which costs
-one device-to-host read per token.
+is prefilled once, then one token per step runs over the preallocated self
+cache (updated in place) and the cross K/V, quantized for the token loop
+when ``quantize_cross_kv`` is set. Greedy takes the decoder's own cache
+layout (``TextDecoder.init_cache(layout=None)``: time-minor when asked for
+and eligible, else flat, else 5-D; dense or int8). The loop runs eagerly;
+with ``stop_early`` it ends once every row (every beam) emitted eot, which
+costs one device-to-host read per token. ``speculative_gamma > 0`` hands
+greedy decode to ``decode/speculative.py``.
 
 Beam search flattens (batch, beam) into the row axis, row ``i * k + j``
-for utterance ``i`` and beam ``j``. Each step reorders the self cache by
-the backpointers with the reorder kernel (``ops/beam_gather.py``), or,
-with ``defer_reorder``, reads the settled prefix through a per-row
-indirection and flushes the accumulated permutation every R steps. The
-quantized cross K/V stays at batch rows and the grouped cross kernel reads
-it once for all beams of an utterance. Scoring is the JAX package's:
-summed log-probs, finished beams frozen on eot at zero cost, ties in the
-top-k broken towards the lower flat index as ``jax.lax.top_k`` does.
+for utterance ``i`` and beam ``j``, over the flat cache where the dims
+allow it and the 5-D one otherwise (never the time-minor one). Each step
+reorders the self cache by the backpointers with the reorder kernels
+(``ops/beam_gather.py``; the cache length is padded so every leaf's row
+payload tiles the kernels' chunks, as the JAX package pads it) or, where
+that padding would be long (the 5-D int8 cache's f32 scales) and
+``beam_reorder`` is ``auto``, with ``index_select``. With
+``defer_reorder`` (dense flat cache only) it reads the settled prefix
+through a per-row indirection and flushes the accumulated permutation
+every R steps. The quantized cross K/V stays at batch rows and the grouped
+cross kernel reads it once for all beams of an utterance. Scoring is the
+JAX package's: summed log-probs, finished beams frozen on eot at zero
+cost, ties in the top-k broken towards the lower flat index as
+``jax.lax.top_k`` does.
 
-Speculative decode, timestamps, joint CTC and W8A8 step weights are later
-slices and raise ``NotImplementedError``.
+Timestamps, joint CTC and W8A8 step weights are later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, List, Tuple
 
 import torch
@@ -89,8 +99,6 @@ def length_bounds_static(cfg: DecodeConfig, enc_t: int) -> Tuple[int, int]:
 def _check_config(dec: TSDecoder, cfg: DecodeConfig) -> None:
     """Raise for the paths outside this port, before anything runs."""
     dec.check_self_cache()
-    if cfg.speculative_gamma > 0:
-        raise NotImplementedError("speculative decode is ROADMAP A11")
     if cfg.with_timestamps:
         raise NotImplementedError("timestamp decoding is ROADMAP A13")
     if cfg.ctc_decode_weight > 0:
@@ -113,7 +121,12 @@ def build_greedy_decoder(
 
     tokens: (batch, max_new) int32, eot-padded after stop; scores: (batch,)
     summed log-probs of the emitted tokens (up to eot). Moves ``dec`` to
-    ``device``."""
+    ``device``. ``speculative_gamma > 0`` returns the speculative decoder
+    (the same contract)."""
+    if cfg.speculative_gamma > 0:
+        from .speculative import build_speculative_decoder
+
+        return build_speculative_decoder(dec, cfg, device)
     dev = resolve_device(device)
     _check_config(dec, cfg)
     dec.to(dev).eval()
@@ -177,24 +190,34 @@ def build_beam_decoder(
     """Returns ``run(memory, spk_prompt) -> (tokens, scores)`` for
     ``cfg.beam_size`` beams: the best hypothesis of each utterance, tokens
     (batch, max_new) int32 eot-padded, scores (batch,) its summed
-    log-probs. Beam size 1 is the greedy decoder. Moves ``dec`` to
-    ``device``."""
+    log-probs. Beam size 1 is the greedy decoder; ``speculative_gamma >
+    0`` goes there too, and the speculative decoder refuses beams. Moves
+    ``dec`` to ``device``."""
     k = cfg.beam_size
-    if k == 1:
+    if k == 1 or cfg.speculative_gamma > 0:
         return build_greedy_decoder(dec, cfg, device)
+    if cfg.with_timestamps:
+        raise ValueError(
+            "timestamp decoding is greedy-only (beam_size 1): the timestamp "
+            "rules are not threaded through the beam carry"
+        )
     dev = resolve_device(device)
     if cfg.beam_reorder not in ("auto", "dma", "take"):
         raise ValueError(f"unknown beam_reorder {cfg.beam_reorder!r}")
     # the flush period rounds up to whole 8-position reorder chunks
     R = -(-cfg.defer_reorder // CHUNK) * CHUNK if cfg.defer_reorder > 0 else 0
-    if R:
-        try:
-            dec.check_self_cache()
-        except NotImplementedError as e:
-            raise ValueError(
-                "defer_reorder needs the dense flat self cache, which this "
-                f"decoder does not have: {e}"
-            ) from e
+    td = dec.decoder
+    hd = td.dims.n_text_state // td.dims.n_text_head
+    if R and not (
+        td.self_kv_bits == 16 and td.flat_self_cache
+        and td.dims.n_text_state % 128 == 0 and 128 % hd == 0
+    ):
+        raise ValueError(
+            "defer_reorder needs the dense flat self cache, which this decoder "
+            f"does not have (self_kv_bits {td.self_kv_bits}, flat_self_cache "
+            f"{td.flat_self_cache}, n_state {td.dims.n_text_state} must tile "
+            "128 lanes)"
+        )
     _check_config(dec, cfg)
     dec.to(dev).eval()
     vocab = dec.dims.n_vocab
@@ -209,13 +232,30 @@ def build_beam_decoder(
         )
         base = prompt_len + len(cfg.init_tokens)
         total = base + max_new
+        # The reorder kernels need each leaf's row payload in whole chunks
+        # of 32 x 128 elements: pad the cache length to ``required``, as
+        # the JAX package does, where that takes at most 64 positions; else
+        # "auto" takes index_select (the 5-D int8 cache's f32 scales)
+        per_pos = [
+            math.prod(x.shape[3:])
+            for x in dec.init_cache(1, 1, layout="flat")
+        ]
+        required = 1
+        for pp in per_pos:
+            required = math.lcm(required, 4096 // math.gcd(pp, 4096))
+        use_kernel = cfg.beam_reorder == "dma" or (
+            cfg.beam_reorder == "auto" and required <= 64
+        )
         if R:  # the window [s0, s0 + R) always fits the cache
-            total += R
+            mlt = math.lcm(required, CHUNK)
+            total = -(-(total + R) // mlt) * mlt
+        elif use_kernel:
+            total = -(-total // required) * required
 
         # prefill at plain batch rows: every beam starts from the same prefix
         pq = cfg.prefill_quantized
         cross = dec.cross_kv(memory, quantize=pq)
-        cache = dec.init_cache(b, total)
+        cache = dec.init_cache(b, total, layout="flat")
         init = torch.tensor(cfg.init_tokens, dtype=torch.int64, device=dev)
         logits, cache = dec.prefill(init[None, :].expand(b, -1), spk_prompt, cache, cross)
         if cfg.quantize_cross_kv:
@@ -281,10 +321,10 @@ def build_beam_decoder(
                     s0 += R
                     s0_dev += R
                 step_kw = dict(row_map=anc, settled=s0_dev, defer_window=R)
-            elif cfg.beam_reorder == "take":  # the JAX package's XLA gather
+            elif not use_kernel:  # the JAX package's XLA gather
                 cache = tuple(x.index_select(1, gather_idx) for x in cache)
             else:  # positions [0, base + i) hold data
-                beam_reorder_cache(cache, gather_idx, live=base + i, time_len=t_pad)
+                cache = beam_reorder_cache(cache, gather_idx, live=base + i, time_len=t_pad)
             logits, cache = dec.step(
                 tok.reshape(-1, 1), pos, cache, cross, beam_group=group, **step_kw
             )

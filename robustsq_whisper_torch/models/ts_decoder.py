@@ -5,7 +5,8 @@ training ``forward`` runs [<|startofprev|>; speaker prompt; targets]
 teacher-forced and causally masked, and returns the logits of the target
 positions only. For decoding, the prefill runs [<|startofprev|>; speaker
 prompt; init tokens] once over the KV cache, then ``step`` extends one token
-at a time.
+at a time (or M tokens at per-row positions, the speculative verify, on the
+5-D cache).
 """
 
 from __future__ import annotations
@@ -79,8 +80,8 @@ class TSDecoder(nn.Module):
     def quantize_cross(self, cross):
         return self.decoder.quantize_cross(cross)
 
-    def init_cache(self, batch: int, max_len: int):
-        return self.decoder.init_cache(batch, max_len)
+    def init_cache(self, batch: int, max_len: int, layout: Optional[str] = None):
+        return self.decoder.init_cache(batch, max_len, layout=layout)
 
     def prefill(
         self,
@@ -94,8 +95,8 @@ class TSDecoder(nn.Module):
         return self.decoder.prefill(self._prefixed(init_tokens, spk_prompt)[0], cache, cross)
 
     def check_self_cache(self) -> None:
-        """Raise unless the self cache is the dense flat one of this port."""
-        self.decoder._check_flat()
+        """Raise for a self cache width the decoder has no layout for."""
+        self.decoder.check_self_cache()
 
     def step(
         self,
@@ -108,7 +109,8 @@ class TSDecoder(nn.Module):
         settled=None,  # deferred beam reorder: settled-prefix length
         defer_window: int = 8,
     ):
-        """token: (batch, 1) ids; pos: device int32 scalar position."""
+        """token: (batch, M) ids; pos: device int32 scalar position, or a
+        (batch,) vector of per-row positions of the first token."""
         return self.decoder.step(
             self.decoder.embed(token), pos, cache, cross,
             beam_group=beam_group, row_map=row_map, settled=settled,

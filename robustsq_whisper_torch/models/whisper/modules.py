@@ -12,7 +12,13 @@ tensors can be fed to both:
 - cross K/V: dense (layers, b, T, heads, hd), or the quantized 6-tuple
   (k_q, k_s, v_q, v_s, v_zp, kv_len) with K/V transposed to
   (layers, b, heads, hd[/2], T_pad);
-- self K/V: the flat (layers, b, T_pad, n_state) cache;
+- self K/V, four layouts (``TextDecoder._cache_layout``): the flat
+  (layers, b, T_pad, n_state) cache, dense or int8 (int8 K/V and one bf16
+  (layers, b, T_pad, 128) scale leaf, ``quantize_flat_kv``); the
+  time-minor (layers, b, heads, hd, T_pad) cache; and the 5-D (layers, b,
+  T, heads, hd) cache, dense or int8 (k8, k_scales, v8, v_scales) with f32
+  per-(row, position, head) scales. Only the 5-D cache takes ragged
+  per-row positions and multi-token (speculative verify) steps;
 - beam search: the decode rows are (batch, beam) flattened, row ``i * k +
   j`` for utterance ``i`` and beam ``j``; the quantized cross K/V stays at
   batch rows and ``beam_group=k`` lets each utterance's beams share it;
@@ -26,9 +32,13 @@ forward; ``remat`` recomputes each block in the backward
 ``Linear`` may carry LoRA factors (``train/lora.py``), which its forward adds
 to the weight.
 
+The 5-D cache's attention is plain PyTorch, as it is plain XLA in JAX; its
+int8 dots run in f32 on the int8 values, exact because every sum stays
+below 2^24 (127 * 127 * 64 for a score, 127 * 127 * the live positions for
+a V sum: the masked weights quantize to 0).
+
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): the 5-D and time-minor self caches, the int8 self cache, W8A8 step
-weights and sequence parallelism.
+item): W8A8 step weights and sequence parallelism.
 """
 
 from __future__ import annotations
@@ -47,10 +57,13 @@ from ...ops.decode_attention import (
     unpack_int4,
 )
 from ...ops.flash_attention import flash_attention, flash_attention_tmaj
+from ...ops.quant import quantize_activation
 from ...ops.self_attention import (
     BLOCK_POS,
     decode_self_attention,
+    decode_self_attention_tmin,
     deferred_self_attention,
+    quantize_flat_kv,
 )
 from .config import WhisperDims, sinusoids
 
@@ -180,11 +193,16 @@ class MultiHeadAttention(nn.Module):
         v_s: torch.Tensor,
         v_zp: torch.Tensor,
         kv_len: torch.Tensor,  # int32 scalar
-        layer_idx: Optional[torch.Tensor] = None,
+        layer_idx=None,
         beam_group: int = 1,  # beams per utterance sharing this K/V
     ) -> torch.Tensor:
         """Cross attention over the quantized K/V: the decode kernel at
-        q_len 1, a plain einsum over unpacked K/V for a prefill.
+        q_len 1, a plain einsum over unpacked K/V for a prefill or a
+        speculative verify chunk.
+
+        ``layer_idx``: the layer of stacked K/V, a device int32 scalar for
+        the kernel, a Python int (a view of the slab) for a multi-token
+        query.
 
         ``beam_group=k``: x has batch*k beam-flattened rows while the K/V
         keep batch rows, and each utterance's k beams attend one shared
@@ -207,11 +225,10 @@ class MultiHeadAttention(nn.Module):
                 return self.out(self._merge(o.to(dt)))
             o = o.float() * v_s + v_zp
             return self.out(self._merge(o[:, None].to(dt)))
+        if beam_group != 1:
+            raise ValueError("beam grouping is for the one-token decode step")
         if layer_idx is not None:
-            raise NotImplementedError(
-                "stacked cross K/V with a multi-token query is speculative "
-                "decode (ROADMAP A11)"
-            )
+            k_q, v_q = k_q[layer_idx], v_q[layer_idx]
         if self.kv_bits == 4:
             k_q, v_q = unpack_int4(k_q), unpack_int4(v_q)
         qf = q.float() * (k_s[:, None].float() * q.shape[-1] ** -0.5)
@@ -339,10 +356,25 @@ class ResidualAttentionBlock(nn.Module):
         x = x + self._mlp(self._cast(self.mlp_ln(x)))
         return x, (k_new, v_new)
 
-    def step_flat(
+    def _finish(
+        self, x: torch.Tensor, o: torch.Tensor, cross: CrossKV,
+        layer_idx, beam_group: int,
+    ) -> torch.Tensor:
+        """The rest of a decode step after the self attention's merged
+        (batch, M, n_state) output: out projection, cross attention, MLP.
+        ``layer_idx`` picks the slab of stacked quantized cross K/V."""
+        x = x + self.attn.out(o)
+        x = self._cross(
+            x, cross, layer_idx=layer_idx if len(cross) == 6 else None,
+            beam_group=beam_group,
+        )
+        return x + self._mlp(self._cast(self.mlp_ln(x)))
+
+    def step_packed(
         self,
         x: torch.Tensor,  # (batch, 1, n_state)
-        cache: Cache,  # (k_flat, v_flat): (layers, b, T_pad, n_state)
+        cache: Cache,  # every layer's flat or time-minor leaves
+        layout: str,  # "flat" or "tmin"
         layer: int,
         layer_idx: torch.Tensor,  # device int32 scalar == layer
         pos: torch.Tensor,  # device int32 scalar
@@ -353,34 +385,116 @@ class ResidualAttentionBlock(nn.Module):
         settled: Optional[torch.Tensor] = None,
         defer_window: int = 8,
     ) -> torch.Tensor:
-        """One decode token through the block, over the flat cache; with
-        ``row_map`` the deferred-beam-reorder read (settled prefix through
-        the row indirection, the window and the new token merged)."""
+        """One decode token through the block over the flat cache (dense
+        or int8, through the kernel) or the time-minor one (through the
+        cross kernel's state), with ``row_map`` the deferred-beam-reorder
+        read of the dense flat cache (settled prefix through the row
+        indirection, the window and the new token merged)."""
         h = self._cast(self.attn_ln(x))
         kf = self.attn.key(h)[:, 0]
         vf = self.attn.value(h)[:, 0]
         qf = self.attn.query(h)[:, 0]
+        b = qf.shape[0]
         if row_map is not None:
             o = deferred_self_attention(
                 qf, kf, vf, cache, pos, settled, row_map, layer_idx,
                 heads=self.n_head, window=defer_window,
             )
+        elif layout == "tmin":
+            as3 = lambda t: t.reshape(b, self.n_head, -1)
+            o = decode_self_attention_tmin(
+                as3(qf), as3(kf), as3(vf), cache, pos, layer_idx
+            ).reshape(b, -1)
         else:
             o = decode_self_attention(
                 qf, kf, vf, cache, pos, layer_idx, heads=self.n_head
             )
-        # The new row goes into the cache in place, right after this layer's
-        # read: the kernel reads only [0, pos) and merges the new token from
-        # its own operands, so this equals the JAX package's single write of
-        # every layer's row after the layer scan.
-        for buf, new in zip(cache, (kf, vf)):
-            buf[layer].index_copy_(1, pos_index, new[:, None])
-        x = x + self.attn.out(o[:, None])
-        x = self._cross(
-            x, cross, layer_idx=layer_idx if len(cross) == 6 else None,
-            beam_group=beam_group,
-        )
-        return x + self._mlp(self._cast(self.mlp_ln(x)))
+        # The new entries go into the cache in place, right after this
+        # layer's read: the read covers only [0, pos) and merges the new
+        # token from its own operands, so this equals the JAX package's one
+        # write of every layer's entries after the layer scan (the int8
+        # form's scales are per row and head, so quantizing one layer's row
+        # gives the same values as quantizing all layers at once).
+        if layout == "tmin":
+            for buf, new in zip(cache, (kf, vf)):
+                buf[layer].index_copy_(3, pos_index, as3(new)[..., None])
+        else:
+            news = (kf, vf) if len(cache) == 2 else quantize_flat_kv(kf, vf, self.n_head)
+            for buf, new in zip(cache, news):
+                buf[layer].index_copy_(1, pos_index, new[:, None])
+        return self._finish(x, o[:, None], cross, layer_idx, beam_group)
+
+    @staticmethod
+    def _new_v(w_new: torch.Tensor, v_new: torch.Tensor) -> torch.Tensor:
+        """The new tokens' V contribution: (b, h, q, m) weights x (b, m, h,
+        d) values, elementwise at q = m = 1 as the JAX package does."""
+        if w_new.shape[-1] == 1:
+            return w_new.transpose(1, 2) * v_new.float()
+        return torch.einsum("bhqm,bmhd->bqhd", w_new, v_new.float())
+
+    @staticmethod
+    def _quantize_cache_entry(t: torch.Tensor):
+        """(b, M, h, d) -> (int8 values, per-(b, position, h) f32 scales)."""
+        t8, sc = quantize_activation(t)
+        return t8, sc[..., 0]
+
+    def step_5d(
+        self,
+        x: torch.Tensor,  # (batch, M, n_state)
+        cache: Cache,  # this layer's (k, v) or (k8, k_s, v8, v_s)
+        pos: torch.Tensor,  # device int32 scalar, or (batch,) per-row
+        cross: CrossKV,
+        layer_idx,  # stacked quantized cross K/V: device scalar or int
+        beam_group: int = 1,
+    ):
+        """M decode tokens through the block over this layer's slice of
+        the 5-D cache, which is only read: returns the new x and the new
+        entries, (b, M, h, hd) each (and (b, M, h) f32 scales in the int8
+        form), for the caller to write. The M new tokens attend the live
+        prefix [0, pos) of their row and each other causally."""
+        q_len = x.shape[1]
+        h = self._cast(self.attn_ln(x))
+        k_new, v_new = self.attn.kv(h)  # (b, M, heads, hd)
+        q = self.attn._split(self.attn.query(h))
+        scale = q.shape[-1] ** -0.5
+        quant = len(cache) == 4
+        if quant:
+            ck8, cks, cv8, cvs = cache  # (b, T, h, hd) int8, (b, T, h) f32
+            max_len = ck8.shape[1]
+            q8, q_sc = quantize_activation(q)  # q_sc (b, M, h, 1)
+            s32 = torch.einsum("bqhd,bkhd->bhqk", q8.float(), ck8.float())
+            k_sc = cks.transpose(1, 2)[:, :, None, :]  # (b, h, 1, k)
+            s_pref = s32 * q_sc.transpose(1, 2) * k_sc * scale
+        else:
+            ck, cv = cache
+            max_len = ck.shape[1]
+            s_pref = torch.einsum("bqhd,bkhd->bhqk", q.float(), ck.float()) * scale
+        # live prefix: a scalar pos gives one (1, k) mask, a vector a per-row one
+        t_idx = torch.arange(max_len, device=x.device)
+        live = t_idx < (pos[:, None] if pos.dim() else pos)
+        s_pref = torch.where(live.reshape(-1, 1, 1, max_len), s_pref, -1e30)
+        s_new = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_new.float()) * scale
+        if q_len > 1:  # the M new tokens attend each other causally
+            tri = torch.ones(q_len, q_len, dtype=torch.bool, device=x.device).tril()
+            s_new = torch.where(tri, s_new, -1e30)
+        w = torch.softmax(torch.cat([s_pref, s_new], dim=-1), dim=-1)
+        if quant:
+            # the V scales fold into the weights, which are quantized so
+            # that the V sum is an int8 dot
+            wp = w[..., :max_len] * cvs.transpose(1, 2)[:, :, None, :]
+            w8, w_sc = quantize_activation(wp)  # w_sc (b, h, q, 1)
+            o32 = torch.einsum("bhqk,bkhd->bqhd", w8.float(), cv8.float())
+            o = o32 * w_sc.transpose(1, 2) + self._new_v(w[..., max_len:], v_new)
+        else:
+            o = torch.einsum(
+                "bhqk,bkhd->bqhd", w[..., :max_len].to(cv.dtype).float(), cv.float()
+            ) + self._new_v(w[..., max_len:], v_new)
+        x = self._finish(x, self.attn._merge(o), cross, layer_idx, beam_group)
+        if quant:
+            news = self._quantize_cache_entry(k_new) + self._quantize_cache_entry(v_new)
+        else:
+            news = (k_new, v_new)
+        return x, news
 
 
 def _no_sequence_parallel(sequence_parallel: bool) -> None:
@@ -459,8 +573,8 @@ class AudioEncoder(nn.Module):
 
 
 class TextDecoder(nn.Module):
-    """Whisper text decoder with tied-embedding logits and the flat
-    KV-cache decode path."""
+    """Whisper text decoder with tied-embedding logits and the KV-cache
+    decode path over every self-cache layout."""
 
     def __init__(
         self, dims: WhisperDims, cross_kv_bits: int = 8,
@@ -499,27 +613,51 @@ class TextDecoder(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.token_embedding.weight.dtype
 
-    def _check_flat(self) -> None:
-        """The only self cache of this slice is the dense flat one."""
+    def check_self_cache(self) -> None:
+        """Raise for a self cache width the decoder has no layout for."""
+        if self.self_kv_bits not in (8, 16):
+            raise ValueError(
+                f"self_kv_bits must be 16 (dense) or 8 (int8), got {self.self_kv_bits}"
+            )
+
+    @property
+    def _tmin_self(self) -> bool:
+        """The time-minor cache is eligible (greedy's default when asked)."""
+        d = self.dims
+        return (
+            self.tmin_self_cache and self.flat_self_cache
+            and self.self_kv_bits == 16
+            and (d.n_text_state // d.n_text_head) % 8 == 0
+        )
+
+    @property
+    def _flat_self(self) -> bool:
+        """The flat cache is eligible: n_state tiles 128 lanes and, for
+        int8, two scales a head fit in one 128-lane row."""
         d = self.dims
         hd = d.n_text_state // d.n_text_head
-        if self.tmin_self_cache:
-            raise NotImplementedError(
-                "the time-minor self cache is ROADMAP B6 "
-                "(decode_self_attention_tmin)"
-            )
-        if self.self_kv_bits != 16:
-            raise NotImplementedError(
-                "the int8 self cache is ROADMAP queue B (the int8 flat "
-                "branch of decode_self_attention)"
-            )
-        if not (
-            self.flat_self_cache and d.n_text_state % 128 == 0 and 128 % hd == 0
-        ):
-            raise NotImplementedError(
-                "the 5-D self cache (flat_self_cache=False or dims the flat "
-                "cache cannot tile) comes with speculative decode, ROADMAP A11"
-            )
+        return (
+            self.flat_self_cache and self.self_kv_bits in (8, 16)
+            and d.n_text_state % 128 == 0 and 128 % hd == 0
+            and (self.self_kv_bits == 16 or 2 * d.n_text_head <= 128)
+        )
+
+    @property
+    def _flat_quant(self) -> bool:
+        """The int8 flat cache: int8 K/V and one bf16 scale leaf."""
+        return self._flat_self and self.self_kv_bits == 8
+
+    def _cache_layout(self, cache: Cache) -> str:
+        """``flat`` (L, b, T, n_state: 2 dense leaves or 3 int8 + scales),
+        ``tmin`` (L, b, heads, hd, T) or ``5d`` (L, b, T, heads, hd)."""
+        leaf = cache[0]
+        if len(cache) == 3 or leaf.dim() == 4:
+            return "flat"
+        d = self.dims
+        hd = d.n_text_state // d.n_text_head
+        if leaf.dim() == 5 and leaf.shape[2] == d.n_text_head and leaf.shape[3] == hd:
+            return "tmin"
+        return "5d"
 
     # ---- embedding / logits ----
 
@@ -582,40 +720,90 @@ class TextDecoder(nn.Module):
         out = quantize_kv_tensors(k, v, bits=self.cross_kv_bits)
         return out[:-1] + (out[-1].expand(k.shape[0]).contiguous(),)
 
-    def init_cache(self, batch: int, max_len: int) -> Cache:
-        """The dense flat self cache: 2x (layers, batch, pad_len, n_state),
-        pad_len a multiple of BLOCK_POS."""
-        self._check_flat()
+    def init_cache(
+        self, batch: int, max_len: int, layout: Optional[str] = None
+    ) -> Cache:
+        """The self cache, zeros, stacked per layer. ``layout=None`` takes
+        the time-minor (L, b, heads, hd, T_pad) cache (T_pad a multiple of
+        128) when ``_tmin_self`` holds; else, and with ``"flat"`` (the beam
+        decoder), the flat one (L, b, T_pad, n_state) with T_pad a multiple
+        of BLOCK_POS (int8: two int8 leaves and the bf16 (L, b, T_pad, 128)
+        scale leaf) when the dims allow it, else the 5-D (L, b, max_len,
+        heads, hd) one (int8: (k8, k_scales, v8, v_scales), f32 scales per
+        (row, position, head))."""
+        self.check_self_cache()
         d = self.dims
-        pad_len = -(-max_len // BLOCK_POS) * BLOCK_POS
-        shape = (d.n_text_layer, batch, pad_len, d.n_text_state)
+        hd = d.n_text_state // d.n_text_head
         dev = self.token_embedding.weight.device
-        return tuple(
-            torch.zeros(shape, dtype=self.dtype, device=dev) for _ in range(2)
-        )
+        zeros = lambda shape, dtype=self.dtype: torch.zeros(shape, dtype=dtype, device=dev)
+        if layout is None and self._tmin_self:
+            layout = "tmin"
+        if layout not in (None, "tmin", "flat"):
+            raise ValueError(f"unknown cache layout {layout!r}")
+        if layout == "tmin":
+            if not self._tmin_self:
+                raise ValueError(
+                    "the time-minor cache needs tmin_self_cache, "
+                    "flat_self_cache, self_kv_bits 16 and head_dim % 8 == 0"
+                )
+            t_pad = -(-max_len // 128) * 128
+            shape = (d.n_text_layer, batch, d.n_text_head, hd, t_pad)
+            return zeros(shape), zeros(shape)
+        if self._flat_self:
+            pad_len = -(-max_len // BLOCK_POS) * BLOCK_POS
+            shape = (d.n_text_layer, batch, pad_len, d.n_text_state)
+            if self._flat_quant:
+                return (
+                    zeros(shape, torch.int8), zeros(shape, torch.int8),
+                    zeros(shape[:3] + (128,), torch.bfloat16),
+                )
+            return zeros(shape), zeros(shape)
+        shape = (d.n_text_layer, batch, max_len, d.n_text_head, hd)
+        if self.self_kv_bits == 8:
+            return (
+                zeros(shape, torch.int8), zeros(shape[:-1], torch.float32),
+                zeros(shape, torch.int8), zeros(shape[:-1], torch.float32),
+            )
+        return zeros(shape), zeros(shape)
 
     @staticmethod
     def _layer_cross(cross: CrossKV, i: int) -> CrossKV:
         return tuple(c[i] for c in cross)
 
     def prefill(self, x_emb: torch.Tensor, cache: Cache, cross: CrossKV):
-        """Run a multi-token prefix, filling cache[:, :, :len] in place.
-        Returns the f32 logits of the last position and the cache."""
-        self._check_flat()
+        """Run a multi-token prefix, filling positions [0, len) of the cache
+        in place. Returns the f32 logits of the last position and the
+        cache."""
+        self.check_self_cache()
         b, length, _ = x_emb.shape
         x = (x_emb + self.positional_embedding[:length]).to(self.dtype)
         mask = causal_mask(length, device=x.device)
+        cache = tuple(cache)
+        layout = self._cache_layout(cache)
         for i, block in enumerate(self.blocks):
-            x, news = block.prefill_news(x, mask, self._layer_cross(cross, i))
+            x, (k, v) = block.prefill_news(x, mask, self._layer_cross(cross, i))
+            if layout == "tmin":  # (b, len, h, hd) -> time-minor (b, h, hd, len)
+                news = (k.permute(0, 2, 3, 1), v.permute(0, 2, 3, 1))
+                for buf, new in zip(cache, news):
+                    buf[i, ..., :length] = new
+                continue
+            if layout == "flat":
+                news = (k.reshape(b, length, -1), v.reshape(b, length, -1))
+                if len(cache) == 3:
+                    news = quantize_flat_kv(*news, self.dims.n_text_head)
+            elif len(cache) == 4:
+                news = (block._quantize_cache_entry(k) + block._quantize_cache_entry(v))
+            else:
+                news = (k, v)
             for buf, new in zip(cache, news):
-                buf[i, :, :length] = new.reshape(b, length, -1)
+                buf[i, :, :length] = new
         x = self.ln(x[:, -1:]).to(self.dtype)
         return self.logits(x)[:, 0], cache
 
     def step(
         self,
-        token_emb: torch.Tensor,  # (batch, 1, n_state)
-        pos: torch.Tensor,  # device int32 scalar
+        token_emb: torch.Tensor,  # (batch, M, n_state)
+        pos: torch.Tensor,  # device int32 scalar, or (batch,) per row
         cache: Cache,
         cross: CrossKV,
         beam_group: int = 1,
@@ -623,39 +811,77 @@ class TextDecoder(nn.Module):
         settled: Optional[torch.Tensor] = None,
         defer_window: int = 8,
     ):
-        """One decode step over the flat cache, which is updated in place.
-        Returns the f32 logits (batch, n_vocab) and the cache.
+        """One decode step, the cache updated in place. ``pos`` is a scalar
+        (every row at one position) or a (batch,) vector of per-row
+        positions of the first of the M tokens (speculative decode: draft
+        steps and the multi-token verify, 5-D cache only). Returns the f32
+        logits, (batch, n_vocab) at M = 1 and (batch, M, n_vocab) else, and
+        the cache.
 
         ``beam_group=k``: token_emb and the cache carry batch*k
         beam-flattened rows while the quantized ``cross`` keeps batch rows
         (``attend_quant``). ``row_map``, ``settled`` and ``defer_window``
-        select the deferred-beam-reorder read of the self cache
+        select the deferred-beam-reorder read of the dense flat cache
         (``deferred_self_attention``)."""
-        self._check_flat()
-        if token_emb.shape[1] != 1:
-            raise NotImplementedError(
-                "multi-token steps are speculative decode, ROADMAP A11"
+        self.check_self_cache()
+        q_len = token_emb.shape[1]
+        ragged = pos.dim() > 0
+        # t: the positions of the M new tokens, (batch, M) per row or (M,)
+        # for every row
+        if ragged:
+            t = pos.long()[:, None] + torch.arange(q_len, device=pos.device)
+            pos_emb = self.positional_embedding[t]
+        else:
+            t = pos.reshape(1).long()
+            if q_len > 1:
+                t = t + torch.arange(q_len, device=pos.device)
+            pos_emb = self.positional_embedding.index_select(0, t)  # broadcast over rows
+        x = (token_emb + pos_emb).to(self.dtype)
+        cache = tuple(cache)
+        layout = self._cache_layout(cache)
+        if (ragged or q_len > 1) and layout != "5d":
+            raise ValueError(
+                "ragged or multi-token steps (speculative decode) need the 5-D "
+                "cache: build the decoder with flat_self_cache=False"
             )
+        if row_map is not None and not (layout == "flat" and len(cache) == 2):
+            raise ValueError("the deferred beam reorder needs the dense flat cache")
         if beam_group != 1 and len(cross) != 6:
             raise ValueError(
                 "beam grouping needs the quantized cross-KV layout; expand "
                 "the dense cross K/V across beams instead"
             )
-        pos_index = pos.reshape(1).long()
-        x = (
-            token_emb + self.positional_embedding.index_select(0, pos_index)
-        ).to(self.dtype)
         quantized = len(cross) == 6
+        news = []
         for i, block in enumerate(self.blocks):
             if quantized:
                 k_q, k_s, v_q, v_s, v_zp, kv_len = cross
                 cross_i = (k_q, k_s[i], v_q, v_s[i], v_zp[i], kv_len[i])
             else:
                 cross_i = self._layer_cross(cross, i)
-            x = block.step_flat(
-                x, cache, i, self.layer_ids[i], pos, pos_index, cross_i,
-                beam_group=beam_group, row_map=row_map, settled=settled,
-                defer_window=defer_window,
-            )
+            li = self.layer_ids[i]
+            if layout == "5d":
+                x, new = block.step_5d(
+                    x, tuple(c[i] for c in cache), pos, cross_i,
+                    li if q_len == 1 else i, beam_group=beam_group,
+                )
+                news.append(new)
+            else:
+                x = block.step_packed(
+                    x, cache, layout, i, li, pos, t, cross_i,
+                    beam_group=beam_group, row_map=row_map, settled=settled,
+                    defer_window=defer_window,
+                )
+        if news:
+            # one write a leaf of every layer's (b, M, ...) entries after
+            # the layers, as the JAX package does
+            rows = torch.arange(pos.shape[0], device=pos.device)[:, None] if ragged else None
+            for buf, parts in zip(cache, zip(*news)):
+                new = torch.stack(parts).to(buf.dtype)  # (L, b, M, ...)
+                if ragged:
+                    buf[:, rows, t] = new
+                else:
+                    buf.index_copy_(2, t, new)
         x = self.ln(x).to(self.dtype)
-        return self.logits(x)[:, 0], cache
+        logits = self.logits(x)
+        return (logits[:, 0] if q_len == 1 else logits), cache

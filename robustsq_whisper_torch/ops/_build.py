@@ -32,7 +32,11 @@ KERNELS = (
     "flash_attention_bwd",
 )
 # C entry points of a library, where not one named like the library
-ENTRIES = {"flash_attention_bwd": ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+ENTRIES = {
+    "flash_attention_bwd": ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+    "decode_self_attention": ("decode_self_attention", "decode_self_attention_int8"),
+    "beam_reorder_cache": ("beam_reorder_cache", "beam_reorder_cache_flat"),
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,9 +47,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # and modes as int
 SIGNATURES = {
     "flash_attention_tmaj": [_P] * 4 + [_I] * 4 + [_P],
-    "decode_cross_attention": [_P] * 6 + [_I] * 6 + [_P],
+    "decode_cross_attention": [_P] * 8 + [_I] * 6 + [_P],
     "decode_self_attention": [_P] * 8 + [_I] * 5 + [_P],
+    "decode_self_attention_int8": [_P] * 9 + [_I] * 5 + [_P],
     "beam_reorder_cache": [_P] * 3 + [_I] * 6 + [_P],
+    "beam_reorder_cache_flat": [_P] * 5 + [_I] * 5 + [_P],
     "settled_self_attention": [_P] * 9 + [_I] * 6 + [_P],
     "flash_attention": [_P] * 6 + [_I] * 10 + [_P],
     "flash_attention_bwd_dq": [_P] * 8 + [_I] * 10 + [_P],

@@ -14,10 +14,19 @@ version for CPU tensors. The contract is the JAX package's
 - ``group > 1`` (beam search): q is (batch, heads, group, d), the group's
   beams share their utterance's K/V, one read for all of them, and the
   output is (batch, heads, group, d); the scales fold as in group 1, with
-  ``k_scale[:, :, None]`` and ``v_scale[:, :, None]``.
+  ``k_scale[:, :, None]`` and ``v_scale[:, :, None]``;
+- ``return_state`` (the time-minor self cache): no scales; the output is
+  the normalised f32 attention and the online-softmax state (m, l), f32 of
+  shape (batch, heads) (or (batch, heads, group)). A row with no live
+  position returns m = -1e30 (the JAX package's ``NEG_INF``), l = 0 and a
+  zero output, which weighs exactly 0 in a merge.
 
-The wrapper counts kernel launches with group 1 in ``launches`` and those
-with group > 1 in ``grouped_launches``.
+The kernel reads only positions [0, kv_len), what the JAX option
+``dynamic_grid`` asks of the TPU kernel, so the port has no such option.
+
+The wrapper counts kernel launches with group 1 in ``launches``, those
+with group > 1 in ``grouped_launches`` and those with ``return_state`` in
+``state_launches``.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ _MODES = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 3}
 PACKED_INT4_MODE = 0
 MAX_GROUP = 8  # queries one kernel block serves
 MAX_SCORES = 49152  # group * T_pad scores a block keeps in shared memory
+NEG = -1e30  # m of a row with no live position (the JAX package's NEG_INF)
 
 
 def pack_int4(q4: torch.Tensor) -> torch.Tensor:
@@ -65,8 +75,10 @@ def decode_cross_attention_plain(
     kv_len,
     layer_idx=None,
     packed_int4: bool = False,
-) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: (batch, heads, group, d) f32."""
+    return_state: bool = False,
+):
+    """Plain PyTorch version of the kernel: (batch, heads, group, d) f32,
+    and with ``return_state`` also (m, l), each (batch, heads, group)."""
     if layer_idx is not None:
         kt, vt = kt[int(layer_idx)], vt[int(layer_idx)]
     if packed_int4:
@@ -75,9 +87,15 @@ def decode_cross_attention_plain(
     live = torch.arange(kt.shape[-1], device=qs.device) < torch.as_tensor(
         kv_len, device=qs.device
     )
-    s = s.masked_fill(~live, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhgt,bhdt->bhgd", p, vt.float())
+    if not return_state:
+        s = s.masked_fill(~live, float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bhgt,bhdt->bhgd", p, vt.float())
+    m = s.masked_fill(~live, NEG).amax(dim=-1)
+    p = torch.where(live, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhgt,bhdt->bhgd", p, vt.float())
+    return o / torch.clamp(l, min=1e-30)[..., None], m, l
 
 
 def decode_cross_attention(
@@ -90,15 +108,21 @@ def decode_cross_attention(
     layer_idx=None,  # int32 scalar: slab of stacked kt/vt
     packed_int4: bool = False,
     group: int = 1,  # beam queries per K/V row
-) -> torch.Tensor:
+    return_state: bool = False,  # f32 output and the state (m, l)
+):
     """softmax(q . K / sqrt(d)) @ V for one query position; returns q's
-    shape in q.dtype."""
+    shape in q.dtype, or with ``return_state`` (f32 output, m, l)."""
     if group > 1:
         b, h, gq, d = q.shape
         if gq != group:
             raise ValueError(f"q {tuple(q.shape)} does not hold group {group}")
     else:
         b, h, d = q.shape
+    if return_state and (k_scale is not None or v_scale is not None):
+        raise ValueError(
+            "return_state is for the dense (unscaled) self cache; fold scales "
+            "outside after the merge instead"
+        )
     stacked = kt.dim() == 5
     if stacked != (layer_idx is not None):
         raise ValueError("layer_idx is given exactly when kt/vt are stacked")
@@ -114,22 +138,26 @@ def decode_cross_attention(
         kv_len = kt.shape[-1]
 
     if q.device.type == "cpu":
-        out = decode_cross_attention_plain(
-            qs, kt, vt, kv_len, layer_idx, packed_int4
+        res = decode_cross_attention_plain(
+            qs, kt, vt, kv_len, layer_idx, packed_int4, return_state
         )
     elif q.device.type == "cuda":
-        out = _launch(qs, kt, vt, kv_len, layer_idx, packed_int4)
+        res = _launch(qs, kt, vt, kv_len, layer_idx, packed_int4, return_state)
     else:
         raise ValueError(f"unsupported device {q.device}")
-    out = out.to(q.dtype)
+    squeeze = (lambda x: x) if group > 1 else (lambda x: x[:, :, 0])
+    if return_state:
+        return tuple(squeeze(x) for x in res)
+    out = res.to(q.dtype)
     if v_scale is not None:
         out = (out.float() * v_scale.float()[:, :, None]).to(q.dtype)
-    return out if group > 1 else out[:, :, 0]
+    return squeeze(out)
 
 
-def _launch(qs, kt, vt, kv_len, layer_idx, packed_int4):
+def _launch(qs, kt, vt, kv_len, layer_idx, packed_int4, return_state=False):
     """The kernel on (b, h, g, d) f32 queries; a group wider than one
-    block serves runs as several launches, each reading K/V once."""
+    block serves runs as several launches, each reading K/V once. Returns
+    the f32 output, or (output, m, l) with ``return_state``."""
     dev = qs.device
     if packed_int4:
         if kt.dtype != torch.int8:
@@ -156,24 +184,36 @@ def _launch(qs, kt, vt, kv_len, layer_idx, packed_int4):
     kv = _build.device_scalar(kv_len, dev)
     li = None if layer_idx is None else _build.device_scalar(layer_idx, dev)
     b, h, group, d = qs.shape
-    outs = []
+    outs, ms, ls = [], [], []
     for g0 in range(0, group, per_launch):
         q_part = qs[:, :, g0:g0 + per_launch].contiguous()
         g = q_part.shape[2]
-        out = torch.empty((b, h, g, d), dtype=torch.float32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        out = torch.empty((b, h, g, d), **f32)
+        m, l = (torch.empty((b, h, g), **f32) for _ in range(2)) if return_state else (None, None)
         err = _build.load("decode_cross_attention")(
             q_part.data_ptr(), kt.data_ptr(), vt.data_ptr(),
             None if li is None else li.data_ptr(), kv.data_ptr(),
-            out.data_ptr(), b, h, d, t_pad, g, mode, _build.stream_ptr(dev),
+            out.data_ptr(), None if m is None else m.data_ptr(),
+            None if l is None else l.data_ptr(), b, h, d, t_pad, g, mode,
+            _build.stream_ptr(dev),
         )
         _build.check(err, "decode_cross_attention")
-        if group > 1:
+        if return_state:
+            decode_cross_attention.state_launches += 1
+        elif group > 1:
             decode_cross_attention.grouped_launches += 1
         else:
             decode_cross_attention.launches += 1
         outs.append(out)
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+        ms.append(m)
+        ls.append(l)
+    cat = lambda xs: xs[0] if len(xs) == 1 else torch.cat(xs, dim=2)
+    if return_state:
+        return cat(outs), cat(ms), cat(ls)
+    return cat(outs)
 
 
 decode_cross_attention.launches = 0
 decode_cross_attention.grouped_launches = 0
+decode_cross_attention.state_launches = 0

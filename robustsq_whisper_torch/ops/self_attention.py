@@ -1,12 +1,22 @@
-"""One-query self attention over the dense flat decode cache.
+"""One-query self attention over the flat and time-minor decode caches.
 
 ``decode_self_attention`` launches the hand-written CUDA kernel
 (``csrc/decode_self_attention.cu``) for CUDA tensors and runs the plain
 version for CPU tensors. The contract is the JAX package's
-``decode_self_attention`` with the two-leaf dense cache: the cache is
-(layers, batch, T_pad, n_state) with heads concatenated along n_state,
-positions [0, pos) of slab ``layer_idx`` are live, and the new token's K/V
-(not yet in the cache) merge last.
+``decode_self_attention``: the cache is (layers, batch, T_pad, n_state)
+with heads concatenated along n_state, positions [0, pos) of slab
+``layer_idx`` are live, and the new token's K/V (not yet in the cache)
+merge last. The cache is the dense two-leaf form, or the int8 three-leaf
+form of ``quantize_flat_kv``: int8 K and V and one bf16 (layers, batch,
+T_pad, 128) scale leaf, K's per-head scales in lanes [0, heads) and V's in
+[heads, 2 heads). The K scale multiplies each score after the dot, the V
+scale each softmax weight before the V sum, while the normaliser sums the
+raw weights.
+
+``decode_self_attention_tmin`` reads the time-minor (layers, batch, heads,
+head_dim, T_pad) cache through ``decode_cross_attention`` with
+``return_state`` and merges the new token in f32, as the JAX package
+composes it; it has no kernel of its own.
 
 The deferred beam reorder reads the cache in three parts, as the JAX
 package does: ``settled_self_attention`` (the kernel
@@ -23,10 +33,36 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .decode_attention import decode_cross_attention
 
 BLOCK_POS = 8  # the cache length is padded to a multiple of this
 NEG = -1e30  # the JAX package's mask value for online-softmax states
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def quantize_flat_kv(k: torch.Tensor, v: torch.Tensor, heads: int):
+    """Flat K/V rows (..., n_state) -> the int8 cache form (k8, v8,
+    scales): int8 data of the input shape and one (..., 128) bf16 scale
+    leaf, symmetric per (row, head), K's scales in lanes [0, heads), V's in
+    [heads, 2 heads), zeros after. The scale is rounded to bf16 before the
+    divide, and the codes are clipped to +-127 (the rounding may shrink
+    the scale below max / 127)."""
+    if 2 * heads > 128:
+        raise ValueError(f"{heads} heads do not fit two scales a head in 128 lanes")
+
+    def one(x):
+        g = x.float().reshape(*x.shape[:-1], heads, -1)
+        s = (g.abs().amax(dim=-1) / 127.0).to(torch.bfloat16)
+        s = torch.maximum(s, torch.tensor(1e-6, dtype=torch.bfloat16, device=x.device))
+        q8 = torch.clamp(torch.round(g / s[..., None].float()), -127, 127)
+        return q8.to(torch.int8).reshape(x.shape), s
+
+    k8, ks = one(k)
+    v8, vs = one(v)
+    pad = torch.zeros(
+        (*ks.shape[:-1], 128 - 2 * heads), dtype=torch.bfloat16, device=k.device
+    )
+    return k8, v8, torch.cat([ks, vs, pad], dim=-1)
 
 
 def decode_self_attention_plain(
@@ -38,26 +74,28 @@ def decode_self_attention_plain(
     layer_idx,
     heads: int,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: (batch, n_state) in q.dtype."""
-    k_flat, v_flat = cache
+    """Plain PyTorch version of the kernel, both cache forms: (batch,
+    n_state) in q.dtype."""
     b, n_state = q.shape
     hd = n_state // heads
     p, li = int(pos), int(layer_idx)
     heads_of = lambda t: t.float().reshape(*t.shape[:-1], heads, hd)
     qh = heads_of(q) * hd**-0.5  # (b, h, hd)
-    kc = heads_of(k_flat[li, :, :p])  # (b, p, h, hd)
-    vc = heads_of(v_flat[li, :, :p])
+    kc = heads_of(cache[0][li, :, :p])  # (b, p, h, hd)
+    vc = heads_of(cache[1][li, :, :p])
+    s_cache = torch.einsum("bhd,bphd->bhp", qh, kc)
+    if len(cache) == 3:  # int8 codes: fold the per-(position, head) scales
+        sc = cache[2][li, :, :p].float()  # (b, p, 128)
+        s_cache = s_cache * sc[..., :heads].transpose(1, 2)
     s = torch.cat(
-        [
-            torch.einsum("bhd,bphd->bhp", qh, kc),
-            torch.einsum("bhd,bhd->bh", qh, heads_of(k_new))[..., None],
-        ],
+        [s_cache, torch.einsum("bhd,bhd->bh", qh, heads_of(k_new))[..., None]],
         dim=-1,
     )
     w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhp,bphd->bhd", w[..., :p], vc) + w[..., p:] * heads_of(
-        v_new
-    )
+    w_cache = w[..., :p]
+    if len(cache) == 3:
+        w_cache = w_cache * sc[..., heads:2 * heads].transpose(1, 2)
+    o = torch.einsum("bhp,bphd->bhd", w_cache, vc) + w[..., p:] * heads_of(v_new)
     return o.reshape(b, n_state).to(q.dtype)
 
 
@@ -65,25 +103,33 @@ def decode_self_attention(
     q: torch.Tensor,  # (batch, n_state) current query, head-concatenated
     k_new: torch.Tensor,  # (batch, n_state) current token K (not cached)
     v_new: torch.Tensor,
-    cache: tuple,  # (k_flat, v_flat): (layers, batch, T_pad, n_state)
+    cache: tuple,  # (k_flat, v_flat[, scales]): (layers, batch, T_pad, n_state)
     pos,  # int32 scalar: cache positions [0, pos) are live
     layer_idx,  # int32 scalar: layer slab to read
     heads: int,
 ) -> torch.Tensor:
     """softmax([q.K_cache[:pos]; q.k_new] / sqrt(hd)) @ [V_cache; v_new];
-    returns (batch, n_state) in q.dtype."""
+    returns (batch, n_state) in q.dtype. Launches are counted in
+    ``launches`` (dense cache) and ``int8_launches`` (int8 cache)."""
     cache = tuple(cache)
-    if len(cache) == 3:
-        raise NotImplementedError(
-            "the int8 flat self cache (three leaves) is ROADMAP queue B: "
-            "decode_self_attention int8 branch"
-        )
-    k_flat, v_flat = cache
+    if len(cache) not in (2, 3):
+        raise ValueError(f"a flat cache has 2 or 3 leaves, got {len(cache)}")
+    quantized = len(cache) == 3
+    k_flat, v_flat = cache[:2]
     b, n_state = q.shape
     if k_flat.dim() != 4 or k_flat.shape != v_flat.shape:
         raise ValueError(f"bad flat cache shapes {k_flat.shape}, {v_flat.shape}")
     if k_flat.shape[1] != b or k_flat.shape[3] != n_state or n_state % heads:
         raise ValueError(f"cache {k_flat.shape} does not match q {q.shape}")
+    if quantized and (
+        k_flat.dtype != torch.int8 or v_flat.dtype != torch.int8
+        or cache[2].shape != (*k_flat.shape[:3], 128)
+        or cache[2].dtype != torch.bfloat16
+    ):
+        raise ValueError(
+            "the int8 flat cache is int8 K/V and a bf16 (layers, batch, T, "
+            "128) scale leaf"
+        )
     if k_new.shape != q.shape or v_new.shape != q.shape:
         raise ValueError("q, k_new, v_new must share a (batch, n_state) shape")
     if q.device.type == "cpu":
@@ -92,9 +138,11 @@ def decode_self_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    tensors = (q, k_new, v_new, k_flat, v_flat)
-    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
-        raise TypeError("q, k/v and the cache must all be f32 or bf16")
+    tensors = (q, k_new, v_new) + cache
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors[1:3]) or (
+        not quantized and any(t.dtype != q.dtype for t in cache)
+    ):
+        raise TypeError("q, k/v and a dense cache must all be f32 or bf16")
     for t in tensors:
         if t.device != q.device:
             raise ValueError("q, k/v and the cache must be on one device")
@@ -106,7 +154,18 @@ def decode_self_attention(
     p = _build.device_scalar(pos, q.device)
     li = _build.device_scalar(layer_idx, q.device)
     out = torch.empty_like(q)
-    err = _build.load("decode_self_attention")(
+    lib = "decode_self_attention"
+    if quantized:
+        err = _build.load(lib, "decode_self_attention_int8")(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_flat.data_ptr(),
+            v_flat.data_ptr(), cache[2].data_ptr(), li.data_ptr(), p.data_ptr(),
+            out.data_ptr(), b, heads, hd, k_flat.shape[2], _DTYPES[q.dtype],
+            _build.stream_ptr(q.device),
+        )
+        _build.check(err, "decode_self_attention_int8")
+        decode_self_attention.int8_launches += 1
+        return out
+    err = _build.load(lib)(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_flat.data_ptr(),
         v_flat.data_ptr(), li.data_ptr(), p.data_ptr(), out.data_ptr(),
         b, heads, hd, k_flat.shape[2], _DTYPES[q.dtype],
@@ -118,6 +177,34 @@ def decode_self_attention(
 
 
 decode_self_attention.launches = 0
+decode_self_attention.int8_launches = 0
+
+
+def decode_self_attention_tmin(
+    q3: torch.Tensor,  # (batch, heads, head_dim) current query, unscaled
+    k_new: torch.Tensor,  # (batch, heads, head_dim) current token K (not cached)
+    v_new: torch.Tensor,
+    cache: tuple,  # (k, v): (layers, batch, heads, head_dim, T_pad)
+    pos,  # int32 scalar: cache positions [0, pos) are live
+    layer_idx,  # int32 scalar: layer slab to read
+) -> torch.Tensor:
+    """Self attention over the time-minor cache: the cache part is
+    ``decode_cross_attention`` with ``return_state`` (its kernel on the
+    card), the new token merges here in f32. Returns (batch, heads,
+    head_dim) in q3.dtype."""
+    kc, vc = cache
+    o, m, l = decode_cross_attention(
+        q3, kc, vc, kv_len=pos, layer_idx=layer_idx, return_state=True
+    )  # o (b, h, d) f32 normalised; m, l (b, h) f32
+    d = q3.shape[-1]
+    qf = q3.float() * d**-0.5
+    s_new = (qf * k_new.float()).sum(dim=-1)  # (b, h)
+    m_fin = torch.maximum(m, s_new)
+    lw = torch.exp(m - m_fin) * l  # the cache part's reweighted normaliser
+    p_new = torch.exp(s_new - m_fin)
+    den = torch.clamp(lw + p_new, min=1e-30)[..., None]
+    out = (o * lw[..., None] + p_new[..., None] * v_new.float()) / den
+    return out.to(q3.dtype)
 
 
 def settled_self_attention_plain(

@@ -4,7 +4,10 @@ Mirrors the JAX package's ``serve/engine.py``: one (encode, run) program
 pair from ``build_decode_fns``, driven at a fixed batch size. Short
 requests are zero-padded into the static window; unused batch rows repeat
 row 0 and are dropped on the host. Audio is staged to the device as int16
-by default (half the bytes of f32, exact for WAV/FLAC-sourced audio).
+by default (half the bytes of f32, exact for WAV/FLAC-sourced audio). A
+DecodeConfig with ``speculative_gamma > 0`` serves by speculative greedy
+decode, self-drafting or with a separate ``draft`` decoder (the JAX
+engine's ``draft_vars``, converted with ``convert.load_flax``).
 """
 
 from __future__ import annotations
@@ -46,11 +49,9 @@ class TranscriptionEngine:
         dcfg: DecodeConfig,
         cfg: EngineConfig = EngineConfig(),
         mesh: Optional[Any] = None,
-        draft_vars: Optional[Any] = None,
+        draft: Optional[Any] = None,
         device="cuda",
     ) -> None:
-        if draft_vars is not None:
-            raise NotImplementedError("speculative decode is ROADMAP A11")
         if cfg.transport not in ("int16", "float32"):
             raise ValueError(f"unknown transport {cfg.transport!r}")
         self.device = resolve_device(device)
@@ -59,7 +60,7 @@ class TranscriptionEngine:
         self.tokenizer = tokenizer
         self.n_mels = encoder.dims.n_mels
         self.encode, self.run = build_decode_fns(
-            encoder, decoder, dcfg, mesh, device=self.device
+            encoder, decoder, dcfg, mesh, device=self.device, draft=draft
         )
         # compute callers are serialized; staging has its own lock so the
         # next batch can stage while the device runs the current one

@@ -204,6 +204,101 @@ def test_settled_kernel_matches_plain(cuda, settled, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pos", [0, 5, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_decode_self_kernel_matches_plain(cuda, pos, dtype):
+    """The int8 flat cache (int8 K/V, bf16 scale leaf); pos = 0 reads no
+    position and returns exactly the new token's V."""
+    q, kn, vn, kc, vc = (torch.from_numpy(x).to(cuda) for x in _self_inputs(pos, heads=2))
+    cache = tself.quantize_flat_kv(kc, vc, 2)
+    q, kn, vn = (x.to(dtype) for x in (q, kn, vn))
+    n = tself.decode_self_attention.int8_launches
+    got = tself.decode_self_attention(q, kn, vn, cache, pos, 1, heads=2)
+    torch.cuda.synchronize()
+    assert tself.decode_self_attention.int8_launches == n + 1
+    ref = tself.decode_self_attention_plain(
+        q.cpu(), kn.cpu(), vn.cpu(), tuple(c.cpu() for c in cache), pos, 1, 2
+    )
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float().cpu(), ref.float(), **tol)
+    if pos == 0:
+        assert torch.equal(got, vn)
+
+
+def _tmin_inputs(cuda, seed, layers=2, b=3, heads=4, t_pad=256, dtype=torch.bfloat16):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=cuda).to(dtype)
+    q, kn, vn = (rnd(b, heads, 64) for _ in range(3))
+    kc, vc = (rnd(layers, b, heads, 64, t_pad) for _ in range(2))
+    return q, kn, vn, kc, vc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_len", [0, 1, 130, 256])
+def test_decode_cross_state_kernel_matches_plain(cuda, kv_len):
+    """return_state over the stacked dense time-minor cache: the f32 output
+    and (m, l); kv_len = 0 is the all-masked state (-1e30, 0, 0)."""
+    q, _, _, kc, vc = _tmin_inputs(cuda, kv_len)
+    n = tdec.decode_cross_attention.state_launches
+    got = tdec.decode_cross_attention(q, kc, vc, kv_len=kv_len, layer_idx=1,
+                                      return_state=True)
+    torch.cuda.synchronize()
+    assert tdec.decode_cross_attention.state_launches == n + 1
+    ref = tdec.decode_cross_attention(q.cpu(), kc.cpu(), vc.cpu(), kv_len=kv_len,
+                                      layer_idx=1, return_state=True)
+    for g_, r in zip(got, ref):
+        assert g_.dtype == torch.float32 and g_.shape == r.shape
+        torch.testing.assert_close(g_.cpu(), r, **F32_TOL)
+    if kv_len == 0:
+        assert (got[1] == -1e30).all() and not got[2].any() and not got[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [0, 7, 200])
+def test_decode_self_tmin_matches_plain(cuda, pos):
+    """The time-minor read (the state kernel plus the f32 merge) against
+    the same composition on the CPU; pos = 0 gives the new token's V."""
+    q, kn, vn, kc, vc = _tmin_inputs(cuda, pos + 3)
+    got = tself.decode_self_attention_tmin(q, kn, vn, (kc, vc), pos, 1)
+    ref = tself.decode_self_attention_tmin(
+        q.cpu(), kn.cpu(), vn.cpu(), (kc.cpu(), vc.cpu()), pos, 1
+    )
+    torch.testing.assert_close(got.float().cpu(), ref.float(), **BF16_TOL)
+    if pos == 0:
+        assert torch.equal(got, vn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", [0, 1, 20, 31, 32, 33, 128])
+def test_flattened_beam_reorder_kernel_matches_plain(cuda, live):
+    """5-D bf16 K/V (one launch), a 5-D int8 and an f32 scale leaf, every
+    position non-zero: the live chunks move, the tail is written as zeros,
+    the inputs are untouched. live below one chunk (1, 20, 31) moves one."""
+    g = torch.Generator(device=cuda).manual_seed(live)
+    src = torch.tensor([3, 0, 0, 5, 2, 1] * 3, device=cuda)
+    rows = src.numel()
+    five = (3, rows, 128, 4, 64)
+    leaves = (
+        torch.randn(five, generator=g, device=cuda).bfloat16(),
+        torch.randn(five, generator=g, device=cuda).bfloat16(),
+        torch.randint(-127, 128, five, generator=g, device=cuda).to(torch.int8),
+        torch.rand((3, rows, 128, 32), generator=g, device=cuda) + 0.5,
+    )
+    before = [x.clone() for x in leaves]
+    n = tbg.beam_reorder_cache.flat_launches
+    out = tbg.beam_reorder_cache(leaves, src, live=live, time_len=128)
+    torch.cuda.synchronize()
+    assert tbg.beam_reorder_cache.flat_launches == n + 3
+    ref = tbg.beam_reorder_cache(tuple(x.cpu() for x in before), src.cpu(),
+                                 live=live, time_len=128)
+    for o, r, x, b in zip(out, ref, leaves, before):
+        assert o is not x and torch.equal(x, b)
+        assert torch.equal(o.cpu(), r)
+        e = tbg.live_rows(live, x.numel() // (3 * rows * 128), 128) * 128
+        assert not o.reshape(3, rows, -1)[:, :, e:].any()
+
+
+@pytest.mark.cuda
 def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     """On CUDA tensors each wrapper launches its kernel: with every plain
     version made to raise, the calls still succeed."""
@@ -219,6 +314,7 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
         (tself, "decode_self_attention_plain"),
         (tself, "settled_self_attention_plain"),
         (tbg, "beam_reorder_cache_plain"),
+        (tbg, "beam_reorder_flat_plain"),
     ):
         monkeypatch.setattr(mod, name, refuse)
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -235,6 +331,13 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     tself.settled_self_attention(q, (kc, kc), 8, 1, rm, heads=2)
     tself.deferred_self_attention(q, q, q, (kc, kc), 10, 8, rm, 1, heads=2, window=8)
     tbg.beam_reorder_cache((kc, kc), rm.flip(0), live=9, time_len=16)
+    k8, v8, sc = tself.quantize_flat_kv(kc, kc, 2)
+    tself.decode_self_attention(q, q, q, (k8, v8, sc), 5, 1, heads=2)
+    kt5 = rnd(2, 6, 2, 64, 128)
+    q3 = rnd(6, 2, 64)
+    tself.decode_self_attention_tmin(q3, q3, q3, (kt5, kt5), 9, 1)
+    x5 = rnd(2, 6, 32, 2, 64)
+    tbg.beam_reorder_cache((x5, x5), rm.flip(0), live=9, time_len=32)
     torch.cuda.synchronize()
 
 

@@ -160,9 +160,15 @@ def test_device_scalar_takes_ints_and_tensors():
 
 
 def test_int8_flat_cache_raises():
+    """A three-leaf cache is the int8 form: f32 leaves, or a scale leaf
+    that is not bf16 (layers, batch, T, 128), raise instead of reading."""
     q, kn, vn, kc, vc = map(torch.from_numpy, _self_inputs(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="int8 flat cache"):
         tself.decode_self_attention(q, kn, vn, (kc, vc, kc), 1, 0, heads=2)
+    k8 = kc.to(torch.int8)
+    bad_scales = torch.zeros((*k8.shape[:3], 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="int8 flat cache"):
+        tself.decode_self_attention(q, kn, vn, (k8, k8, bad_scales), 1, 0, heads=2)
 
 
 @pytest.mark.parametrize(
@@ -290,3 +296,30 @@ def test_top_k_ties_break_as_jax(seed):
     got_v, got_i = top_k_stable(torch.from_numpy(x), 5)
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(ref_v))
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Every extern "C" entry point in csrc/ is declared in _build with its
+    parameters in order: pointers (and the stream) as void*, sizes as int.
+    A wrong count is a launch-time TypeError or a cut pointer on the card."""
+    import ctypes
+    import re
+
+    from robustsq_whisper_torch.ops import _build
+
+    found = {}
+    for src in _build.CSRC.glob("*.cu"):
+        for name, params in re.findall(
+            r'extern "C" int (\w+)\((.*?)\)\s*\{', src.read_text(), re.S
+        ):
+            kinds = [
+                ctypes.c_void_p if "*" in p else ctypes.c_int
+                for p in (x.strip() for x in params.split(","))
+            ]
+            found[name] = kinds
+    assert set(found) == set(_build.SIGNATURES)
+    for name, kinds in found.items():
+        assert _build.SIGNATURES[name] == kinds, name
+    for lib in _build.KERNELS:  # every entry a library declares exists there
+        for entry in _build.ENTRIES.get(lib, (lib,)):
+            assert entry in found

@@ -6,6 +6,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -14,9 +15,10 @@ from robustsq_whisper_torch.decode.search import (
     build_beam_decoder,
     build_greedy_decoder,
 )
+from robustsq_whisper_torch.init import init_params
 from robustsq_whisper_torch.models import QFormerTSEncoder, TSDecoder
 from robustsq_whisper_torch.models import TSEncoderConfig, WhisperDims
-from robustsq_whisper_torch.serve import TranscriptionEngine
+from robustsq_whisper_torch.serve import EngineConfig, TranscriptionEngine
 from robustsq_whisper_torch.tokenizer import ByteTokenizer
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -75,27 +77,60 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize(
     "change",
-    [
-        dict(beam_size=4, self_kv_bits=8), dict(speculative_gamma=4),
-        dict(with_timestamps=True), dict(ctc_decode_weight=0.3),
-        dict(quantize_weights=True),
-    ],
+    [dict(with_timestamps=True), dict(ctc_decode_weight=0.3), dict(quantize_weights=True)],
 )
 def test_paths_outside_the_slice_raise(change):
     """Paths of later slices raise NotImplementedError naming their ROADMAP
     item when the engine is built; none runs a silent substitute."""
-    change = dict(change)
-    dec_kw = {"self_kv_bits": change.pop("self_kv_bits")} if "self_kv_bits" in change else {}
     dims = WhisperDims(n_text_state=128, n_text_head=2, n_text_layer=1, n_vocab=50)
     enc = QFormerTSEncoder(dims, TSEncoderConfig(num_hidden_layers=1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TranscriptionEngine(
-            enc, TSDecoder(dims, **dec_kw), ByteTokenizer(),
-            DecodeConfig(**change), device="cpu",
+            enc, TSDecoder(dims), ByteTokenizer(), DecodeConfig(**change),
+            device="cpu",
         )
 
 
+def _small_engine(dec_kw, change):
+    dims = WhisperDims(
+        n_audio_ctx=16, n_audio_state=128, n_audio_head=2, n_audio_layer=1,
+        n_text_ctx=64, n_text_state=128, n_text_head=2, n_text_layer=2, n_vocab=300,
+    )
+    ts = TSEncoderConfig(num_query_tokens=2, num_hidden_layers=1, qformer_hidden_size=32,
+                         qformer_heads=2, qformer_intermediate_size=64)
+    enc = init_params(QFormerTSEncoder(dims, ts), 0)
+    dec = init_params(TSDecoder(dims, startofprev_token=3, **dec_kw), 1)
+    cfg = dict(max_new_tokens=4, eot=2, init_tokens=(1,), quantize_cross_kv=True)
+    return TranscriptionEngine(
+        enc, dec, ByteTokenizer(), DecodeConfig(**cfg, **change),
+        EngineConfig(batch_size=2, speech_seconds=0.32, enroll_seconds=0.2),
+        device="cpu",
+    )
+
+
+@pytest.mark.parametrize(
+    "dec_kw,change",
+    [
+        (dict(self_kv_bits=8), dict(beam_size=4)),  # beam over the int8 flat cache
+        (dict(flat_self_cache=False), dict(speculative_gamma=4, draft_layers=1)),
+    ],
+    ids=["beam-int8-flat", "speculative"],
+)
+def test_paths_of_this_slice_build_and_run(dec_kw, change):
+    """Paths this slice ported: the engine builds on the CPU and
+    transcribes once."""
+    engine = _small_engine(dec_kw, change)
+    rng = np.random.default_rng(0)
+    items = [(rng.standard_normal(5120).astype(np.float32) * 0.1,
+              rng.standard_normal(3200).astype(np.float32) * 0.1)]
+    texts = engine.transcribe(items)
+    assert len(texts) == 1 and isinstance(texts[0], str)
+
+
 def test_mesh_and_other_caches_raise():
+    """A mesh raises NotImplementedError naming its ROADMAP item; a cache
+    layout the decoder is not eligible for, or a self cache width with no
+    layout, raises ValueError."""
     dims = WhisperDims(n_text_state=128, n_text_head=2, n_text_layer=1, n_vocab=50)
     enc = QFormerTSEncoder(dims, TSEncoderConfig(num_hidden_layers=1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -103,10 +138,48 @@ def test_mesh_and_other_caches_raise():
             enc, TSDecoder(dims), ByteTokenizer(), DecodeConfig(),
             mesh=object(), device="cpu",
         )
-    for kw in (dict(self_kv_bits=8), dict(flat_self_cache=False),
-               dict(tmin_self_cache=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TSDecoder(dims, **kw).init_cache(2, 8)
+    for kw in (dict(), dict(self_kv_bits=8, tmin_self_cache=True),
+               dict(flat_self_cache=False, tmin_self_cache=True)):
+        with pytest.raises(ValueError, match="time-minor"):
+            TSDecoder(dims, **kw).init_cache(2, 8, layout="tmin")
+    with pytest.raises(ValueError, match="self_kv_bits"):
+        TSDecoder(dims, self_kv_bits=4).init_cache(2, 8)
+
+
+@pytest.mark.parametrize(
+    "kw,layout,shapes",
+    [
+        (dict(self_kv_bits=8), "flat",
+         [(1, 2, 16, 128), (1, 2, 16, 128), (1, 2, 16, 128)]),
+        (dict(flat_self_cache=False), "5d", [(1, 2, 9, 2, 64)] * 2),
+        (dict(tmin_self_cache=True), "tmin", [(1, 2, 2, 64, 128)] * 2),
+    ],
+    ids=["int8-flat", "5d", "tmin"],
+)
+def test_every_cache_layout_builds_and_steps(kw, layout, shapes):
+    """The three caches that are not the dense flat one: init_cache gives
+    the layout's leaves, and a prefill and a step run over them on the
+    CPU."""
+    dims = WhisperDims(n_text_state=128, n_text_head=2, n_text_layer=1, n_vocab=50)
+    dec = init_params(TSDecoder(dims, **kw), 2).decoder
+    cache = dec.init_cache(2, 9)
+    assert dec._cache_layout(cache) == layout
+    assert [tuple(c.shape) for c in cache] == shapes
+    mem = torch.randn(2, 6, 128)
+    cross = dec.quantize_cross(dec.cross_kv(mem))
+    with torch.inference_mode():
+        _, cache = dec.prefill(torch.randn(2, 3, 128), cache, dec.cross_kv(mem))
+        logits, cache = dec.step(torch.randn(2, 1, 128), torch.tensor(3, dtype=torch.int32),
+                                 cache, cross)
+    assert logits.shape == (2, 50) and torch.isfinite(logits).all()
+
+
+def test_defer_reorder_with_int8_cache_raises():
+    """The deferred beam reorder reads the dense flat cache only."""
+    dims = WhisperDims(n_text_state=128, n_text_head=2, n_text_layer=1, n_vocab=50)
+    cfg = DecodeConfig(beam_size=4, defer_reorder=8)
+    with pytest.raises(ValueError, match="dense flat self cache"):
+        build_beam_decoder(TSDecoder(dims, self_kv_bits=8), cfg, device="cpu")
 
 
 def _train_model(**ts):
