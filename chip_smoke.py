@@ -157,10 +157,45 @@ def time_events_ms(torch, fn, reps: int = 10) -> float:
     return statistics.median(samples)
 
 
+def ptxas_report(reports):
+    """(library, kernel, registers line, spill line) for every kernel of
+    the ``nvcc -Xptxas -v`` reports, each template instantiation on its own
+    (names demangled where ``c++filt`` is found)."""
+    import re
+    import shutil
+
+    out = []
+    for name, text in reports.items():
+        fn, spills = "?", ""
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+            elif "spill" in line:
+                spills = line.strip()
+            elif "registers" in line:
+                out.append([name, fn, line.split(":", 1)[-1].strip(), spills])
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[1] for r in out),
+                               capture_output=True, text=True, timeout=60).stdout.split("\n")
+        for r, n in zip(out, names):
+            r[1] = n or r[1]
+    return out
+
+
 def bound(bytes_moved: float, ops: float, kind: str):
     t_bytes = bytes_moved / HBM_BYTES_S * 1e3
     t_ops = ops / PEAK_OPS_S[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def with_shares(row) -> None:
+    """The flash forward rows' share of their bound (bound_ms / ms) and
+    time over the library call's (ms / library_ms)."""
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["vs_library"] = row["ms"] / row["library_ms"]
+    log(f"kernel {row['name']}: share_of_bound {row['share_of_bound']:.3f}, "
+        f"vs_library {row['vs_library']:.3f}")
 
 
 def check_kernels(torch, dev, batch: int, max_new: int, beam: int):
@@ -199,6 +234,18 @@ def check_kernels(torch, dev, batch: int, max_new: int, beam: int):
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(torch, lambda: sdpa(qr, kr, vr)),
     ))
+    with_shares(rows[-1])
+    # what the layout costs: the same kernel at T = 1504 (16-byte words along
+    # T where 1516 takes 8-byte ones), and its row-major layout on the same
+    # heads (16-byte rows)
+    q16, k16, v16 = (x[..., :1504].contiguous() for x in (q, k, v))
+    rq, rk, rv = (z.view(batch, heads, hd, t_enc).permute(0, 3, 1, 2).contiguous()
+                  for z in (q, k, v))
+    log(f"flash_attention_tmaj at T 1504: "
+        f"{time_ms(torch, lambda: fa.flash_attention_tmaj(q16, k16, v16)):.4f} ms; the "
+        f"row-major forward on the same {bh} heads of T {t_enc}: "
+        f"{time_ms(torch, lambda: fa.flash_attention_fwd(rq, rk, rv)):.4f} ms")
+    del q16, k16, v16, rq, rk, rv
 
     # 2. decode cross attention, packed int4, stacked layers
     t_pad = 1536
@@ -690,10 +737,15 @@ def check_flash_kernels(torch, dev):
             bound_ms=b_ms, bound_by=b_by, library_ms=lib,
         ))
         r = rows[-1]
+        if name == "flash_attention":
+            with_shares(r)
         log(f"kernel {name} at ({b}, {t}, {h}, 64) bf16: max_abs_err {e:.3e} (tol "
             f"{r['tol']:.3e}) ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
             f"{b_ms:.5f} ({b_by}) library_ms {lib:.4f}")
         ok = ok and e <= r["tol"]
+    pair = rows[1]["ms"] + rows[2]["ms"]
+    log(f"backward pair (dQ + dK/dV) {pair:.4f} ms, {pair / lib_bwd:.2f}x "
+        f"scaled_dot_product_attention's whole backward ({lib_bwd:.4f} ms)")
     if not ok:
         raise AssertionError("a flash training kernel disagrees with its plain version")
     return rows
@@ -1192,10 +1244,8 @@ def main() -> int:
     t_start = time.perf_counter()
     secs, reports = _build.build_all()
     log(f"kernel build: {secs:.1f} s")
-    for name, text in reports.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+    for name, fn, regs, spills in ptxas_report(reports):
+        log(f"ptxas {name}: {fn}: {regs}; {spills}")
 
     batch, max_new, beam = 4, 32, 5
     rows = check_kernels(torch, dev, batch, max_new, beam)

@@ -61,7 +61,9 @@ F32_TOL = dict(rtol=1e-4, atol=1e-4)  # exp2f/__expf vs torch.exp
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t_len", [256, 301, 1516])  # 301: odd, ragged
+# 1, 63, 64, 65, 129, 301: odd or ragged tiles (2-byte loads for odd T);
+# 1500, 1516: 8- and 16-byte words along T
+@pytest.mark.parametrize("t_len", [1, 63, 64, 65, 129, 256, 301, 1500, 1516])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_tmaj_kernel_matches_plain(cuda, t_len, dtype):
     g = torch.Generator(device=cuda).manual_seed(t_len)
@@ -384,6 +386,7 @@ def _flash_inputs(cuda, seed, b, q_len, kv_len, h, dtype, mask):
 FLASH_CASES = [  # (b, q_len, kv_len, heads, mask)
     (2, 256, 256, 3, None), (2, 301, 301, 2, None), (1, 75, 130, 2, None),
     (2, 160, 160, 2, "padding"), (1, 192, 192, 2, "causal"), (8, 1516, 1516, 2, None),
+    (2, 333, 270, 3, "padding"),  # masked, q_len != kv_len, three query blocks
 ]
 
 
@@ -415,6 +418,26 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
     for got, ref in zip((out, dq, dk, dv), refs):
         assert got.dtype == dtype and got.shape == ref.shape
         assert _rel_err(got, ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_len", [301, 1516])
+def test_flash_layouts_are_bit_identical(cuda, t_len):
+    """One kernel with one summation order computes both layouts: on the
+    same bf16 data the transposed route and the row-major one (unmasked,
+    (bh, T, 1, 64) views) give the same bits, transposed."""
+    g = torch.Generator(device=cuda).manual_seed(t_len)
+    q, k, v = (
+        torch.randn(6, 64, t_len, generator=g, device=cuda).bfloat16() for _ in range(3)
+    )
+    rm = lambda z: z.transpose(1, 2)[:, :, None, :].contiguous()  # (bh, T, 1, 64)
+    n = (tflash.flash_attention_tmaj.launches, tflash.flash_attention_fwd.launches)
+    tmaj = tflash.flash_attention_tmaj(q, k, v)
+    rows, _ = tflash.flash_attention_fwd(rm(q), rm(k), rm(v))
+    torch.cuda.synchronize()
+    assert (tflash.flash_attention_tmaj.launches, tflash.flash_attention_fwd.launches) == (
+        n[0] + 1, n[1] + 1)
+    assert torch.equal(tmaj, rows[:, :, 0, :].transpose(1, 2))
 
 
 @pytest.mark.cuda

@@ -1,0 +1,63 @@
+#!/usr/bin/env python3
+"""Time the port's kernels from one tree of the port, so that two trees can
+be compared on one card.
+
+    python3 time_kernels.py --root DIR [--out FILE]
+
+``--root`` is a checkout holding ``chip_smoke.py`` and
+``robustsq_whisper_torch/`` (this one by default). The script builds that
+tree's kernels and runs that tree's own ``chip_smoke.check_kernels`` and
+``chip_smoke.check_flash_kernels``: each kernel against its plain version
+at the Whisper-medium shapes, with its median device time (CUDA-graph
+replay), its plain version's, its bound and the library call's. The last
+line is one JSON object: the tree, the card's name and power limit, and
+the kernel rows. Run it once a tree, in turns (parent, change, change,
+parent), in one call on one card. Needs one CUDA device; without one it
+exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--out", default=None, help="also write the JSON record here")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)  # the tree's chip_smoke and package, not this one's
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from robustsq_whisper_torch.ops import _build
+
+    for mod in (chip_smoke, _build):
+        if not os.path.abspath(mod.__file__).startswith(root + os.sep):
+            raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, not {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    secs, _ = _build.build_all()
+    chip_smoke.log(f"tree {root}; kernel build {secs:.1f} s")
+    rows = chip_smoke.check_kernels(torch, dev, 4, 32, 5)
+    rows += chip_smoke.check_flash_kernels(torch, dev)
+    record = {"root": root, "gpu": chip_smoke.gpu_info(), "kernels": rows}
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(record, f, indent=1)
+    print(json.dumps(record))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
