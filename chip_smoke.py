@@ -35,14 +35,16 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 5. training: the three flash-attention training kernels (forward, dQ,
    dK/dV) against their plain versions at the medium training shape
    (batch 8 x 16 heads, T = 1500 + 16, bf16) and with a mask at a smaller
-   shape; a small f32 ``TSASRModel`` on the flash route takes a train step
-   on the card and on the CPU (loss and every gradient must agree), then
-   four steps on the card must lower its loss; then ``make_train_step`` at
-   Whisper-medium (bf16, remat, batch 8 of 30 s + 10 s, 48 text tokens) in
-   mode ``lora`` (f32 moments) and ``full`` (bf16 first moment), the JAX
-   bench's training settings: a warm-up step and three timed steps each,
-   every step with the flash forward launched 48 times and each backward
-   kernel 24 times (24 layers, recomputed in the backward);
+   shape, the port's whole backward (delta, dQ, dK/dV) timed beside
+   ``scaled_dot_product_attention``'s; a small f32 ``TSASRModel`` on the
+   flash route takes a train step on the card and on the CPU (loss and
+   every gradient must agree), then four steps on the card must lower its
+   loss; then ``make_train_step`` at Whisper-medium (bf16, remat, batch 8
+   of 30 s + 10 s, 48 text tokens) in mode ``lora`` (f32 moments) and
+   ``full`` (bf16 first moment), the JAX bench's training settings: a
+   warm-up step and three timed steps each, every step with the flash
+   forward launched 48 times and each backward kernel 24 times (24 layers,
+   recomputed in the backward);
 6. last, the profiler reads the device's busy share of the encode, the
    greedy run, both beam runs and one full-mode training step.
 
@@ -190,8 +192,9 @@ def bound(bytes_moved: float, ops: float, kind: str):
 
 
 def with_shares(row) -> None:
-    """The flash forward rows' share of their bound (bound_ms / ms) and
-    time over the library call's (ms / library_ms)."""
+    """A flash row's share of its bound (bound_ms / ms) and time over the
+    library call's (ms / library_ms; for a backward kernel the library's
+    whole backward)."""
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
     row["vs_library"] = row["ms"] / row["library_ms"]
     log(f"kernel {row['name']}: share_of_bound {row['share_of_bound']:.3f}, "
@@ -708,6 +711,17 @@ def check_flash_kernels(torch, dev):
     lib_bwd = time_events_ms(torch, sdpa_fwd_bwd, 10) - lib_fwd
     log(f"scaled_dot_product_attention at the training shape: forward {lib_fwd:.4f} ms "
         f"(events), backward {lib_bwd:.4f} ms (forward + backward minus forward)")
+    # the port's whole backward (delta, dQ, dK/dV), timed the same way
+    port_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def port_fwd_bwd():
+        return torch.autograd.grad(fa.flash_attention(*port_leaves), port_leaves, do)
+
+    port_fwd = time_events_ms(torch, lambda: fa.flash_attention_fwd(q, k, v), 20)
+    port_bwd = time_events_ms(torch, port_fwd_bwd, 10) - port_fwd
+    log(f"flash_attention at the training shape: forward {port_fwd:.4f} ms (events), "
+        f"backward {port_bwd:.4f} ms (delta + dQ + dK/dV; forward + backward minus "
+        f"forward)")
     io = bh * t * 64 * 2  # one bf16 (b, T, h, 64) tensor
     specs = [  # name, TPU kernel line, call, plain, bytes, operations, library ms
         ("flash_attention", 42, lambda: fa.flash_attention_fwd(q, k, v),
@@ -737,15 +751,22 @@ def check_flash_kernels(torch, dev):
             bound_ms=b_ms, bound_by=b_by, library_ms=lib,
         ))
         r = rows[-1]
-        if name == "flash_attention":
-            with_shares(r)
+        with_shares(r)
         log(f"kernel {name} at ({b}, {t}, {h}, 64) bf16: max_abs_err {e:.3e} (tol "
             f"{r['tol']:.3e}) ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
             f"{b_ms:.5f} ({b_by}) library_ms {lib:.4f}")
         ok = ok and e <= r["tol"]
     pair = rows[1]["ms"] + rows[2]["ms"]
-    log(f"backward pair (dQ + dK/dV) {pair:.4f} ms, {pair / lib_bwd:.2f}x "
-        f"scaled_dot_product_attention's whole backward ({lib_bwd:.4f} ms)")
+    pair_bound = rows[1]["bound_ms"] + rows[2]["bound_ms"]
+    # a fused backward (dQ accumulated across key blocks) recomputes S and dP
+    # once: 10 bh T^2 64 operations where the two kernels do 14
+    fused_bound, _ = bound(0, 10 * bh * t * t * 64, "bf16")
+    log(f"backward pair (dQ + dK/dV) {pair:.4f} ms, share_of_bound {pair_bound / pair:.3f} "
+        f"(bound {pair_bound:.4f} ms), {pair / lib_bwd:.2f}x "
+        f"scaled_dot_product_attention's whole backward ({lib_bwd:.4f} ms); the port's "
+        f"whole backward {port_bwd:.4f} ms, {port_bwd / lib_bwd:.2f}x sdpa's; a fused "
+        f"backward's bound {fused_bound:.4f} ms, sdpa's share of it "
+        f"{fused_bound / lib_bwd:.3f}")
     if not ok:
         raise AssertionError("a flash training kernel disagrees with its plain version")
     return rows

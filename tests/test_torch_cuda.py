@@ -322,8 +322,9 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     g = torch.Generator(device=cuda).manual_seed(0)
     rnd = lambda *s: torch.randn(*s, generator=g, device=cuda)
     tflash.flash_attention_tmaj(rnd(2, 64, 256), rnd(2, 64, 256), rnd(2, 64, 256))
-    qkv = [rnd(1, 70, 2, 64).requires_grad_() for _ in range(3)]
-    tflash.flash_attention(*qkv).sum().backward()
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = [rnd(1, 70, 2, 64).to(dtype).requires_grad_() for _ in range(3)]
+        tflash.flash_attention(*qkv).sum().backward()
     kt = torch.zeros((2, 2, 32, 512), dtype=torch.int8, device=cuda)
     for group, q in ((1, rnd(2, 2, 64)), (3, rnd(2, 2, 3, 64))):
         tdec.decode_cross_attention(q, kt, kt, kv_len=300, packed_int4=True, group=group)
@@ -475,3 +476,74 @@ def test_flash_tmaj_grads_match_rowmajor(cuda):
         grads.append([x.grad for x in qkv])
     for got, ref in zip(*grads):
         torch.testing.assert_close(got, ref, **F32_TOL)
+
+
+def _flash_bwd(q, k, v, do, m=None):
+    """Both backward kernels on the plain forward's lse and delta, and their
+    plain versions on the same inputs: ((dq, dk, dv), (plain dq, dk, dv))."""
+    out, lse = tflash.flash_attention_fwd_plain(q, k, v, m)
+    delta = tflash.flash_delta(out, do)
+    got = (tflash.flash_attention_bwd_dq(q, k, v, do, lse, delta, m),
+           *tflash.flash_attention_bwd_dkv(q, k, v, do, lse, delta, m))
+    ref = (tflash.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, m),
+           *tflash.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, m))
+    return got, ref
+
+
+@pytest.mark.cuda
+# 63, 64, 65, 129: ragged and whole 64-row stages; 1, 129, 1516: ragged
+# 192-query (dQ) and 128-key (dK/dV) blocks
+@pytest.mark.parametrize("t_len", [1, 63, 64, 65, 129, 1516])
+def test_flash_bwd_kernels_match_plain(cuda, t_len):
+    """The bf16 backward kernels against their plain versions over lengths
+    that cut the kernels' stages and blocks anywhere."""
+    q, k, v, do, _ = _flash_inputs(cuda, t_len, 2, t_len, t_len, 3, torch.bfloat16, None)
+    n = (tflash.flash_attention_bwd_dq.launches, tflash.flash_attention_bwd_dkv.launches)
+    got, ref = _flash_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    assert (tflash.flash_attention_bwd_dq.launches,
+            tflash.flash_attention_bwd_dkv.launches) == (n[0] + 1, n[1] + 1)
+    for x, r in zip(got, ref):
+        assert x.dtype == torch.bfloat16 and x.shape == r.shape
+        torch.testing.assert_close(x.float(), r.float(), **BF16_TOL)
+        # with one key dQ and dK are 0 but for f32 rounding (dP = delta), so
+        # only longer rows have a scale to be relative to
+        if t_len > 1:
+            assert _rel_err(x, r) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_len", [301, 1516])
+def test_flash_tmaj_bf16_grads_match_plain(cuda, t_len):
+    """The transposed route's bf16 backward runs the backward kernels on
+    (bh, T, 1, 64) rows, 64 elements apart: there they match their plain
+    versions, and autograd through flash_attention_tmaj returns exactly
+    their results."""
+    g = torch.Generator(device=cuda).manual_seed(t_len)
+    q, k, v, gt = (
+        torch.randn(6, 64, t_len, generator=g, device=cuda).bfloat16() for _ in range(4)
+    )
+    rm = lambda z: z.transpose(1, 2)[:, :, None, :].contiguous()  # (bh, T, 1, 64)
+    qr, kr, vr, dor = map(rm, (q, k, v, gt))
+    got, ref = _flash_bwd(qr, kr, vr, dor)
+    for x, r in zip(got, ref):
+        assert _rel_err(x, r) <= 2e-2
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    tflash.flash_attention_tmaj(*qkv).backward(gt)
+    out, lse = tflash.flash_attention_fwd(qr, kr, vr)
+    direct = tflash._flash_backward(qr, kr, vr, None, out, lse, dor)
+    for x, d in zip(qkv, direct):
+        assert torch.equal(x.grad, d[:, :, 0, :].transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", [None, "padding"])
+def test_flash_bwd_is_deterministic(cuda, mask):
+    """No atomics: every output tile has one writer, so two backward calls
+    on the same bf16 inputs give the same bits."""
+    q, k, v, do, m = _flash_inputs(cuda, 11, 2, 1516, 1516, 4, torch.bfloat16, mask)
+    out, lse = tflash.flash_attention_fwd(q, k, v, m)
+    first = tflash._flash_backward(q, k, v, m, out, lse, do)
+    second = tflash._flash_backward(q, k, v, m, out, lse, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

@@ -8,6 +8,8 @@ same numpy inputs: the tolerance is f32 summation-order noise (2e-5 on O(1)
 values, as ``tests/test_flash_attention.py`` allows its kernel 2e-4).
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -140,6 +142,31 @@ def test_lib_path_hashes_the_shared_header(tmp_path, monkeypatch):
     before = _build.lib_path("flash_attention")
     (tmp_path / "flash_common.cuh").write_text("// edited\n")
     assert _build.lib_path("flash_attention") != before
+
+
+@pytest.mark.parametrize("header", ["sm90.cuh", "flash_fwd_sm90.cuh"])
+def test_lib_path_hashes_the_hopper_headers(tmp_path, monkeypatch, header):
+    """The backward library includes sm90.cuh and the forward ones also
+    flash_fwd_sm90.cuh: an edit to either changes every library's path."""
+    for f in ("flash_attention_bwd.cu", "flash_attention.cu", header):
+        (tmp_path / f).write_text((_build.CSRC / f).read_text())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = [_build.lib_path(n) for n in ("flash_attention_bwd", "flash_attention")]
+    (tmp_path / header).write_text("// edited\n")
+    after = [_build.lib_path(n) for n in ("flash_attention_bwd", "flash_attention")]
+    assert all(a != b for a, b in zip(after, before))
+
+
+def test_bf16_flash_kernels_are_wgmma_only():
+    """No mma.sync is left in csrc/: the bf16 flash kernels run on wgmma,
+    the backward library through its two Hopper kernels."""
+    sources = {p.name: p.read_text() for p in _build.CSRC.glob("*.cu*")}
+    assert "sm90.cuh" in sources
+    assert not [n for n, text in sources.items() if "mma.sync" in text]
+    bwd = sources["flash_attention_bwd.cu"]
+    assert '#include "sm90.cuh"' in bwd
+    for kernel in ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel"):
+        assert re.search(kernel + r"<[^>]*><<<", bwd), f"{kernel} is not launched"
 
 
 def test_load_declares_every_entry_of_a_library(tmp_path, monkeypatch):
