@@ -11,7 +11,13 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    main-path shapes (batch 4, beam 5), print the errors, the kernel's median
    time, the plain version's, a library call's where one computes the same
    function, and the least time the card could take (bound); both beam
-   reorders are timed at the JAX bench's beam shape too;
+   reorders are timed at the JAX bench's beam shape too. The cross rows
+   also carry ``call_ms`` (the public call), ``splits`` (the CTAs a
+   cluster takes along T) and, for 2a and 2b, ``ms_layer_sweep`` (one
+   call a layer over all 24, each layer read cold from HBM as the token
+   loop reads it; ``ms`` replays one layer, warm in L2); the packed int4
+   cross kernel is also timed cold at the JAX bench's greedy batch 128 and
+   beam batch 64 x 5 shapes;
 3. small-input agreement: a small model decodes the same input with the
    kernels (f32, on the card) and with the plain versions (on the CPU):
    greedy over every self-cache layout (dense flat, 5-D dense and int8, flat
@@ -91,10 +97,12 @@ def gpu_info() -> str:
     ).stdout.strip()
 
 
-def time_ms(torch, fn, reps: int = 20) -> float:
-    """Median device time of one call of ``fn``: the call is captured once
-    in a CUDA graph, so host launch overhead stays out of the time; each of
-    5 samples replays it ``reps`` times between two CUDA events."""
+def time_ms(torch, fn, reps: int = 20, calls: int = 1) -> float:
+    """Median device time of one call of ``fn``: ``calls`` calls are
+    captured once in a CUDA graph, so host launch overhead stays out of the
+    time; each of 5 samples replays it ``reps`` times between two CUDA
+    events. A call of a few microseconds takes ``calls`` > 1: one replay a
+    call can take longer on the host than the call takes on the card."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up outside the capture
@@ -103,7 +111,8 @@ def time_ms(torch, fn, reps: int = 20) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(calls):
+            fn()
     samples = []
     for _ in range(5):
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -112,7 +121,7 @@ def time_ms(torch, fn, reps: int = 20) -> float:
             graph.replay()
         e.record()
         torch.cuda.synchronize()
-        samples.append(s.elapsed_time(e) / reps)
+        samples.append(s.elapsed_time(e) / (reps * calls))
     del graph
     return statistics.median(samples)
 
@@ -201,6 +210,51 @@ def with_shares(row) -> None:
         f"vs_library {row['vs_library']:.3f}")
 
 
+# (label, batch, group, layers): the main path's shapes over all 24 layers,
+# and the JAX bench's greedy (bench.py:830-914) and beam (bench.py:1091-1140)
+# batches over two layers taken in turns; every layer's K + V passes the
+# 50 MB L2, so each call reads cold
+CROSS_COLD = (  # rows 2a and 2b take their ms_layer_sweep from the first two
+    ("batch 4 greedy, 24-layer sweep", 4, 1, 24),
+    ("batch 4 x beam 5, 24-layer sweep", 4, 5, 24),
+    ("bench greedy batch 128, 2 layers in turns", 128, 1, 2),
+    ("bench beam batch 64 x 5, 2 layers in turns", 64, 5, 2),
+)
+
+
+def cross_cold_times(torch, dev, xa):
+    """The packed int4 cross kernel (``xa._launch`` on prescaled f32
+    queries, a call every tree of the port takes) over stacked K/V at 1536
+    padded positions, 1516 live, one call a layer captured in one graph:
+    the median ms a call, its bound and share, and the split the host
+    picks (1 for a tree without ``choose_splits``)."""
+    heads, hd, t_pad, kv = 16, 64, 1536, 1500 + 16
+    g = torch.Generator(device=dev).manual_seed(2)
+    kv_len = torch.tensor(kv, dtype=torch.int32, device=dev)
+    out = []
+    for label, batch, group, layers in CROSS_COLD:
+        kt, vt = (
+            torch.randint(-128, 128, (layers, batch, heads, hd // 2, t_pad),
+                          generator=g, device=dev, dtype=torch.int8)
+            for _ in range(2)
+        )
+        qs = torch.randn(batch, heads, group, hd, generator=g, device=dev) * 0.0025
+        lis = [torch.tensor(i, dtype=torch.int32, device=dev) for i in range(layers)]
+        fn = lambda: [xa._launch(qs, kt, vt, kv_len, x, True) for x in lis]
+        ms = time_ms(torch, fn, 5 if layers > 2 else 20) / layers
+        b_ms, b_by = bound(
+            2 * batch * heads * (hd // 2) * kv + 2 * batch * heads * group * hd * 4,
+            4 * batch * heads * group * hd * kv, "f32",
+        )
+        choose = getattr(xa, "choose_splits", None)
+        splits = choose(batch * heads, t_pad, 0, xa._sm_count(dev.index or 0)) if choose else 1
+        out.append(dict(shape=label, batch=batch, group=group, layers=layers, ms=ms,
+                        bound_ms=b_ms, bound_by=b_by, share=b_ms / ms, splits=splits))
+        del kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_kernels(torch, dev, batch: int, max_new: int, beam: int):
     """Phase 2: each kernel against its plain version at medium shapes."""
     from robustsq_whisper_torch.ops import beam_gather as bg
@@ -250,59 +304,58 @@ def check_kernels(torch, dev, batch: int, max_new: int, beam: int):
         f"{time_ms(torch, lambda: fa.flash_attention_fwd(rq, rk, rv)):.4f} ms")
     del q16, k16, v16, rq, rk, rv
 
-    # 2. decode cross attention, packed int4, stacked layers
+    # 2. decode cross attention, packed int4, stacked layers: ms is the
+    # kernel on layer 7 (L2-warm after its first replay; kept so that trees
+    # compare like with like), ms_layer_sweep one call a layer over all 24
+    # (each layer cold from HBM, as the token loop meets them), call_ms the
+    # public call
+    cold = cross_cold_times(torch, dev, xa)
+    for r in cold:
+        log(f"decode_cross_attention at {r['shape']}: S {r['splits']}, ms {r['ms']:.4f}, "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}), share {r['share']:.3f}")
     t_pad = 1536
     kt, vt = (
         torch.randint(-128, 128, (layers, batch, heads, hd // 2, t_pad),
                       generator=g, device=dev, dtype=torch.int8)
         for _ in range(2)
     )
-    qx = torch.randn(batch, heads, hd, generator=g, device=dev)
     k_s = torch.full((batch, heads, hd), 0.02, device=dev)  # scores O(1)
     kv_len = torch.tensor(t_enc, dtype=torch.int32, device=dev)
     li = torch.tensor(7, dtype=torch.int32, device=dev)
-    call = lambda: xa.decode_cross_attention(
-        qx, kt, vt, k_s, kv_len=kv_len, layer_idx=li, packed_int4=True
-    )
-    qs = (qx * hd**-0.5 * k_s)[:, :, None]  # (b, h, 1, d)
-    launch = lambda: xa._launch(qs, kt, vt, kv_len, li, True)  # kernel alone
-    plain = lambda: xa.decode_cross_attention_plain(qs, kt, vt, kv_len, 7, True)
-    err = (call() - plain()[:, :, 0]).abs().max().item()
-    b_ms, b_by = bound(
-        2 * batch * heads * (hd // 2) * t_enc + 2 * batch * heads * hd * 4,
-        4 * batch * heads * hd * t_enc, "f32",
-    )
-    rows.append(dict(
-        name="decode_cross_attention", route="cuda",
-        source="robustsq_whisper_torch/csrc/decode_cross_attention.cu",
-        replaces=f"{TPU_SRC}/decode_attention.py:79",
-        max_abs_err=err, tol=1e-4,  # f32 math, __expf vs torch.exp
-        ms=time_ms(torch, launch, 50), plain_ms=time_ms(torch, plain, 10),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    ))
-
-    # 2b. the same, grouped: the beam-5 queries of each utterance share K/V
-    qg = torch.randn(batch, heads, beam, hd, generator=g, device=dev)
-    call = lambda: xa.decode_cross_attention(
-        qg, kt, vt, k_s, kv_len=kv_len, layer_idx=li, packed_int4=True,
-        group=beam,
-    )
-    qs = qg * hd**-0.5 * k_s[:, :, None]
-    launch = lambda: xa._launch(qs, kt, vt, kv_len, li, True)
-    plain = lambda: xa.decode_cross_attention_plain(qs, kt, vt, kv_len, 7, True)
-    err = (call() - plain()).abs().max().item()
-    b_ms, b_by = bound(
-        2 * batch * heads * (hd // 2) * t_enc + 2 * batch * heads * beam * hd * 4,
-        4 * batch * heads * beam * hd * t_enc, "f32",
-    )
-    rows.append(dict(
-        name="decode_cross_attention_grouped", route="cuda",
-        source="robustsq_whisper_torch/csrc/decode_cross_attention.cu",
-        replaces=f"{TPU_SRC}/decode_attention.py:156",
-        max_abs_err=err, tol=1e-4,  # f32 math, __expf vs torch.exp
-        ms=time_ms(torch, launch, 50), plain_ms=time_ms(torch, plain, 10),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    ))
+    for group, name, replaces, sweep in (
+        (1, "decode_cross_attention", f"{TPU_SRC}/decode_attention.py:79", cold[0]),
+        (beam, "decode_cross_attention_grouped", f"{TPU_SRC}/decode_attention.py:156", cold[1]),
+    ):
+        q4 = torch.randn(batch, heads, group, hd, generator=g, device=dev)
+        qx = q4 if group > 1 else q4[:, :, 0]
+        call = lambda: xa.decode_cross_attention(
+            qx, kt, vt, k_s, kv_len=kv_len, layer_idx=li, packed_int4=True, group=group
+        )
+        launch = lambda: xa._launch(q4, kt, vt, kv_len, li, True, k_scale=k_s)
+        qs = q4 * hd**-0.5 * k_s[:, :, None]
+        plain = lambda: xa.decode_cross_attention_plain(qs, kt, vt, kv_len, 7, True)
+        err = (call() - plain().reshape(qx.shape)).abs().max().item()
+        b_ms, b_by = bound(
+            2 * batch * heads * (hd // 2) * t_enc + 2 * batch * heads * group * hd * 4,
+            4 * batch * heads * group * hd * t_enc, "f32",
+        )
+        rows.append(dict(
+            name=name, route="cuda",
+            source="robustsq_whisper_torch/csrc/decode_cross_attention.cu",
+            replaces=replaces,
+            max_abs_err=err, tol=1e-4,  # f32 math, __expf vs torch.exp
+            ms=time_ms(torch, launch, 50), plain_ms=time_ms(torch, plain, 10),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            ms_layer_sweep=sweep["ms"], call_ms=time_ms(torch, call, 50),
+            splits=xa.choose_splits(batch * heads, t_pad, xa.PACKED_INT4_MODE,
+                                    xa._sm_count(dev.index or 0)),
+        ))
+        r = rows[-1]
+        r["share_of_bound"] = b_ms / r["ms_layer_sweep"]
+        log(f"kernel {name}: S {r['splits']}, ms (layer 7) {r['ms']:.4f}, "
+            f"ms_layer_sweep {r['ms_layer_sweep']:.4f} (share of bound "
+            f"{r['share_of_bound']:.3f}), call_ms {r['call_ms']:.4f}")
+    del kt, vt
 
     # 3. decode self attention, dense flat cache, bf16, the last position
     t_pad = -(-(17 + 4 + max_new) // 8) * 8
@@ -426,7 +479,11 @@ def check_kernels(torch, dev, batch: int, max_new: int, beam: int):
     del cache8
 
     # 2c. the cross kernel with return_state over the time-minor self cache
-    # (dense bf16, T_pad a multiple of 128), at the greedy path's last step
+    # (dense bf16, T_pad a multiple of 128), at the greedy path's last step;
+    # the public call is held against sdpa, both timed 20 calls a graph
+    # (one call a replay measured the host's replay rate as often as the
+    # card: 4.4 to 8.1 us for one kernel in one run), the kernel alone
+    # printed beside
     t_min = -(-(17 + 4 + max_new) // 128) * 128
     kt, vt = (
         torch.randn(layers, batch, heads, hd, t_min, generator=g, device=dev).bfloat16()
@@ -436,6 +493,7 @@ def check_kernels(torch, dev, batch: int, max_new: int, beam: int):
     call = lambda: xa.decode_cross_attention(
         q3, kt, vt, kv_len=pos, layer_idx=li, return_state=True
     )
+    launch = lambda: xa._launch(q3[:, :, None], kt, vt, pos, li, False, True)
     qs = q3.float()[:, :, None] * hd**-0.5
     plain = lambda: xa.decode_cross_attention_plain(qs, kt, vt, pos, 7, False, True)
     err = max((a - b.reshape(a.shape)).abs().max().item()
@@ -452,9 +510,17 @@ def check_kernels(torch, dev, batch: int, max_new: int, beam: int):
         source="robustsq_whisper_torch/csrc/decode_cross_attention.cu",
         replaces=f"{TPU_SRC}/decode_attention.py:156",
         max_abs_err=err, tol=1e-4,  # f32 math, __expf vs torch.exp
-        ms=time_ms(torch, call, 50), plain_ms=time_ms(torch, plain, 10),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, lambda: sdpa(qr, kr, vr), 50),
+        ms=time_ms(torch, launch, 50), plain_ms=time_ms(torch, plain, 10),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: sdpa(qr, kr, vr), 10, calls=20),
+        call_ms=time_ms(torch, call, 10, calls=20),
+        splits=xa.choose_splits(batch * heads, t_min, 2, xa._sm_count(dev.index or 0)),
     ))
+    r = rows[-1]
+    r["vs_library"] = r["call_ms"] / r["library_ms"]
+    log(f"kernel decode_cross_attention_state: S {r['splits']}, call_ms {r['call_ms']:.4f} "
+        f"(kernel alone {r['ms']:.4f}) vs sdpa {r['library_ms']:.4f}: vs_library "
+        f"{r['vs_library']:.3f}")
     del kt, vt
 
     # 7b. the flattened zero-tail reorder of the 5-D cache (two bf16

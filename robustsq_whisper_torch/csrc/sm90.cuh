@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the flash-attention kernels
-// (flash_fwd_sm90.cuh, flash_attention_bwd.cu): PTX wrappers for mbarriers,
-// named barriers, cp.async and wgmma, the 128-byte swizzle and its wgmma
+// (flash_fwd_sm90.cuh, flash_attention_bwd.cu; decode_cross_attention.cu
+// takes its cp.async wrappers): PTX wrappers for mbarriers, named
+// barriers, cp.async and wgmma, the 128-byte swizzle and its wgmma
 // descriptors, and the row-major tiles (128-byte rows of 64 bf16 channels,
 // a row every heads * 64 elements) that a loader warpgroup moves into
 // shared memory and a consumer warpgroup writes back.
@@ -68,6 +69,17 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// close this thread's current group of cp.async copies
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// returns once at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // After an mbarrier wait: shared memory written through the generic proxy

@@ -47,7 +47,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # and modes as int
 SIGNATURES = {
     "flash_attention_tmaj": [_P] * 4 + [_I] * 4 + [_P],
-    "decode_cross_attention": [_P] * 8 + [_I] * 6 + [_P],
+    "decode_cross_attention": [_P] * 9 + [_I] * 11 + [_P],
     "decode_self_attention": [_P] * 8 + [_I] * 5 + [_P],
     "decode_self_attention_int8": [_P] * 9 + [_I] * 5 + [_P],
     "beam_reorder_cache": [_P] * 3 + [_I] * 6 + [_P],

@@ -8,9 +8,9 @@ version for CPU tensors. The contract is the JAX package's
 - K/V ride transposed as (batch, heads, d, T) or stacked per layer as
   (layers, batch, heads, d, T) with ``layer_idx`` choosing the slab;
 - ``packed_int4`` stores two channels a byte along head_dim (``pack_int4``);
-- q is scaled by ``d**-0.5 * k_scale`` here, outside the kernel; positions
-  at or past ``kv_len`` are masked; ``v_scale`` multiplies the output and
-  the caller adds the V zero-point;
+- q is scaled as ``(q * d**-0.5) * k_scale`` (inside the kernel on the
+  card, in the same order); positions at or past ``kv_len`` are masked;
+  ``v_scale`` multiplies the output and the caller adds the V zero-point;
 - ``group > 1`` (beam search): q is (batch, heads, group, d), the group's
   beams share their utterance's K/V, one read for all of them, and the
   output is (batch, heads, group, d); the scales fold as in group 1, with
@@ -24,6 +24,11 @@ version for CPU tensors. The contract is the JAX package's
 The kernel reads only positions [0, kv_len), what the JAX option
 ``dynamic_grid`` asks of the TPU kernel, so the port has no such option.
 
+On the card one call with group <= 8 is one launch: the kernel reads q in
+its own dtype through its strides (a transposed beam view needs no copy),
+scales it and writes the output in q's dtype. It splits T across a
+cluster of ``choose_splits`` CTAs, a pure function of the shapes.
+
 The wrapper counts kernel launches with group 1 in ``launches``, those
 with group > 1 in ``grouped_launches`` and those with ``return_state`` in
 ``state_launches``.
@@ -31,6 +36,7 @@ with group > 1 in ``grouped_launches`` and those with ``return_state`` in
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -40,9 +46,28 @@ from . import _build
 
 _MODES = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 3}
 PACKED_INT4_MODE = 0
-MAX_GROUP = 8  # queries one kernel block serves
-MAX_SCORES = 49152  # group * T_pad scores a block keeps in shared memory
+TILE = {0: 128, 1: 128, 2: 64, 3: 64}  # positions a kernel tile holds, by mode
+MAX_GROUP = 8  # queries one kernel CTA serves
+MAX_SPLITS = 8  # CTAs along T in one cluster
 NEG = -1e30  # m of a row with no live position (the JAX package's NEG_INF)
+
+
+def choose_splits(pairs: int, t_pad: int, mode: int, sms: int) -> int:
+    """CTAs along T for each of ``pairs`` (batch, head) pairs: as many as
+    keep the CTAs at or under one an SM (a second CTA on an SM only
+    shares its issue slots), at most ``MAX_SPLITS``, and at least two of
+    T_pad's tiles a CTA (a cluster costs more to launch and merge than a
+    tile's work), then cut to the fewest that keep the same tiles a CTA
+    (no rank left empty when every position is live). 1 where the pairs
+    alone fill the card or T_pad holds fewer than four tiles."""
+    tiles = -(-t_pad // TILE[mode])
+    s = max(1, min(MAX_SPLITS, tiles // 2, sms // pairs))
+    return -(-tiles // -(-tiles // s))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def pack_int4(q4: torch.Tensor) -> torch.Tensor:
@@ -131,18 +156,18 @@ def decode_cross_attention(
     if tuple(kt.shape[-4:-2]) != (b, h):
         raise ValueError(f"K/V {kt.shape} do not match q {q.shape}")
     q4 = q if group > 1 else q[:, :, None]  # (b, h, g, d)
-    qs = q4.float() * (d**-0.5)
-    if k_scale is not None:
-        qs = qs * k_scale.float()[:, :, None]
     if kv_len is None:
         kv_len = kt.shape[-1]
 
     if q.device.type == "cpu":
+        qs = q4.float() * (d**-0.5)
+        if k_scale is not None:
+            qs = qs * k_scale.float()[:, :, None]
         res = decode_cross_attention_plain(
             qs, kt, vt, kv_len, layer_idx, packed_int4, return_state
         )
     elif q.device.type == "cuda":
-        res = _launch(qs, kt, vt, kv_len, layer_idx, packed_int4, return_state)
+        res = _launch(q4, kt, vt, kv_len, layer_idx, packed_int4, return_state, k_scale)
     else:
         raise ValueError(f"unsupported device {q.device}")
     squeeze = (lambda x: x) if group > 1 else (lambda x: x[:, :, 0])
@@ -154,11 +179,13 @@ def decode_cross_attention(
     return squeeze(out)
 
 
-def _launch(qs, kt, vt, kv_len, layer_idx, packed_int4, return_state=False):
-    """The kernel on (b, h, g, d) f32 queries; a group wider than one
-    block serves runs as several launches, each reading K/V once. Returns
-    the f32 output, or (output, m, l) with ``return_state``."""
-    dev = qs.device
+def _launch(q4, kt, vt, kv_len, layer_idx, packed_int4, return_state=False, k_scale=None):
+    """The kernel on (b, h, g, d) queries, unscaled, in their own dtype and
+    strides: one launch for a group of up to ``MAX_GROUP``, several (each
+    reading K/V once) for a wider one. Returns the output in q's dtype
+    (bf16 or f32; f32 for another dtype), or the f32 output, m and l with
+    ``return_state``."""
+    dev = q4.device
     if packed_int4:
         if kt.dtype != torch.int8:
             raise TypeError("packed int4 K/V must be int8")
@@ -174,28 +201,36 @@ def _launch(qs, kt, vt, kv_len, layer_idx, packed_int4, return_state=False):
             raise ValueError("q and K/V must be on one device")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("K/V must be contiguous and 16-byte aligned")
-    pad = (-kt.shape[-1]) % 4
-    if pad:  # the kernel reads 4 positions at a time; masking covers the pad
+    pad = (-kt.shape[-1] * kt.element_size()) % 16 // kt.element_size()
+    if pad:  # the kernel copies 16-byte words of a row; masking covers the pad
         kt, vt = F.pad(kt, (0, pad)), F.pad(vt, (0, pad))
     t_pad = kt.shape[-1]
-    per_launch = min(MAX_GROUP, MAX_SCORES // t_pad)
-    if per_launch < 1:
-        raise ValueError(f"T_pad {t_pad} exceeds the kernel's {MAX_SCORES}")
+    if q4.dtype not in (torch.float32, torch.bfloat16):
+        q4 = q4.float()
+    if q4.stride(-1) != 1:
+        q4 = q4.contiguous()
+    if k_scale is not None:
+        k_scale = k_scale.float().contiguous()
+        if k_scale.device != dev or k_scale.shape != (*q4.shape[:2], q4.shape[3]):
+            raise ValueError(f"k_scale {tuple(k_scale.shape)} does not fit q {tuple(q4.shape)}")
     kv = _build.device_scalar(kv_len, dev)
     li = None if layer_idx is None else _build.device_scalar(layer_idx, dev)
-    b, h, group, d = qs.shape
+    b, h, group, d = q4.shape
+    splits = choose_splits(b * h, t_pad, mode, _sm_count(dev.index or 0))
+    out_dtype = torch.float32 if return_state else q4.dtype
     outs, ms, ls = [], [], []
-    for g0 in range(0, group, per_launch):
-        q_part = qs[:, :, g0:g0 + per_launch].contiguous()
+    for g0 in range(0, group, MAX_GROUP):
+        q_part = q4[:, :, g0:g0 + MAX_GROUP]
         g = q_part.shape[2]
+        out = torch.empty((b, h, g, d), dtype=out_dtype, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
-        out = torch.empty((b, h, g, d), **f32)
         m, l = (torch.empty((b, h, g), **f32) for _ in range(2)) if return_state else (None, None)
         err = _build.load("decode_cross_attention")(
-            q_part.data_ptr(), kt.data_ptr(), vt.data_ptr(),
-            None if li is None else li.data_ptr(), kv.data_ptr(),
-            out.data_ptr(), None if m is None else m.data_ptr(),
+            q_part.data_ptr(), None if k_scale is None else k_scale.data_ptr(),
+            kt.data_ptr(), vt.data_ptr(), None if li is None else li.data_ptr(),
+            kv.data_ptr(), out.data_ptr(), None if m is None else m.data_ptr(),
             None if l is None else l.data_ptr(), b, h, d, t_pad, g, mode,
+            int(q4.dtype == torch.bfloat16), *q_part.stride()[:3], splits,
             _build.stream_ptr(dev),
         )
         _build.check(err, "decode_cross_attention")

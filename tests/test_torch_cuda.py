@@ -102,6 +102,131 @@ def test_decode_cross_kernel_matches_plain(cuda, mode):
     assert torch.equal(again, got)
 
 
+def _split_inputs(cuda, mode, group, t_pad=1536, b=1, h=2):
+    """Stacked two-layer K/V and unscaled queries at a shape where the
+    kernel splits T across a cluster: packed int4 codes with f32 q and K
+    scales, or bf16 K/V with bf16 q (the time-minor cache's form)."""
+    g = torch.Generator(device=cuda).manual_seed(group * 7 + t_pad)
+    shape = (2, b, h, 32 if mode == "int4" else 64, t_pad)
+    if mode == "int4":
+        kt, vt = (torch.randint(-128, 128, shape, generator=g, device=cuda,
+                                dtype=torch.int8) for _ in range(2))
+        q = torch.randn(b, h, group, 64, generator=g, device=cuda)
+        k_s = torch.rand(b, h, 64, generator=g, device=cuda) * 0.15 + 0.05
+        return q, k_s, kt, vt
+    kt, vt = (torch.randn(shape, generator=g, device=cuda).bfloat16() for _ in range(2))
+    return torch.randn(b, h, group, 64, generator=g, device=cuda).bfloat16(), None, kt, vt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", ["0", "1", "tile-1", "tile", "tile+1", "1516"])
+@pytest.mark.parametrize("group", [1, 5])
+@pytest.mark.parametrize("mode", ["int4", "bf16"])
+def test_decode_cross_split_kernel_matches_plain(cuda, mode, group, edge):
+    """T split across a cluster (S > 1 at one utterance of two heads) at the
+    kv_len edges of a tile: ranks whose chunk lies past kv_len add nothing,
+    and kv_len 0 is the empty state (0, -1e30, 0). The state against the
+    plain version; the output with its scales against the plain version
+    (f32 q), or bit-equal to the state's output rounded to bf16 (bf16 q)."""
+    mode_id = tdec.PACKED_INT4_MODE if mode == "int4" else 2
+    tile = tdec.TILE[mode_id]
+    kv_len = {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1}.get(edge) or int(edge)
+    q, k_s, kt, vt = _split_inputs(cuda, mode, group)
+    assert tdec.choose_splits(2, 1536, mode_id, tdec._sm_count(cuda.index or 0)) > 1
+    kw = dict(kv_len=kv_len, layer_idx=1, packed_int4=mode == "int4", group=group)
+    qq = q if group > 1 else q[:, :, 0]
+    n = tdec.decode_cross_attention.state_launches
+    state = tdec.decode_cross_attention(qq, kt, vt, return_state=True, **kw)
+    torch.cuda.synchronize()
+    assert tdec.decode_cross_attention.state_launches == n + 1
+    ref = tdec.decode_cross_attention_plain(
+        q.float() * 0.125, kt, vt, kv_len, 1, mode == "int4", True
+    )
+    for got, r in zip(state, ref):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, r.reshape(got.shape), **F32_TOL)
+    if kv_len == 0:
+        assert not state[0].any() and (state[1] == -1e30).all() and not state[2].any()
+        return
+    out = tdec.decode_cross_attention(qq, kt, vt, k_s, **kw)
+    assert out.dtype == q.dtype and out.shape == qq.shape
+    if mode == "int4":
+        qs = q * 0.125 * k_s[:, :, None]
+        ref = tdec.decode_cross_attention_plain(qs, kt, vt, kv_len, 1, True)
+        torch.testing.assert_close(out, ref.reshape(out.shape), **F32_TOL)
+    else:
+        assert torch.equal(out, state[0].bfloat16())
+
+
+@pytest.mark.cuda
+def test_decode_cross_kernel_is_deterministic(cuda):
+    """The cluster merge has a fixed order and no atomics: two calls give
+    the same bits."""
+    q, k_s, kt, vt = _split_inputs(cuda, "int4", 5)
+    kw = dict(kv_len=1516, layer_idx=1, packed_int4=True, group=5)
+    a = tdec.decode_cross_attention(q, kt, vt, k_s, **kw)
+    b = tdec.decode_cross_attention(q, kt, vt, k_s, **kw)
+    s1 = tdec.decode_cross_attention(q, kt, vt, return_state=True, **kw)
+    s2 = tdec.decode_cross_attention(q, kt, vt, return_state=True, **kw)
+    assert torch.equal(a, b)
+    assert all(torch.equal(x, y) for x, y in zip(s1, s2))
+
+
+@pytest.mark.cuda
+def test_decode_cross_reads_a_transposed_beam_view(cuda):
+    """The beam step's query is a transposed view of (b * g, h, d) bf16
+    rows; the kernel reads it through its strides, with the bits of its
+    contiguous copy, in one launch."""
+    b, g, h = 2, 5, 4
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    rows = torch.randn(b * g, h, 64, generator=gen, device=cuda).bfloat16()
+    view = rows.reshape(b, g, h, 64).transpose(1, 2)  # (b, h, g, d), not contiguous
+    assert not view.is_contiguous()
+    kt, vt = (torch.randint(-128, 128, (3, b, h, 32, 1536), generator=gen, device=cuda,
+                            dtype=torch.int8) for _ in range(2))
+    k_s = torch.rand(b, h, 64, generator=gen, device=cuda) * 0.1
+    kw = dict(kv_len=1516, layer_idx=2, packed_int4=True, group=g)
+    n = tdec.decode_cross_attention.grouped_launches
+    got = tdec.decode_cross_attention(view, kt, vt, k_s, **kw)
+    assert tdec.decode_cross_attention.grouped_launches == n + 1
+    ref = tdec.decode_cross_attention(view.contiguous(), kt, vt, k_s, **kw)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_decode_cross_group8_long_cache_is_one_launch(cuda):
+    """Group 8 over 8192 positions (65536 scores, more than a CTA could hold
+    as a score array in shared memory) is one launch and matches the plain
+    version."""
+    q, k_s, kt, vt = _split_inputs(cuda, "int4", 8, t_pad=8192)
+    kw = dict(kv_len=8000, layer_idx=0, packed_int4=True, group=8)
+    n = tdec.decode_cross_attention.grouped_launches
+    got = tdec.decode_cross_attention(q, kt, vt, k_s, **kw)
+    torch.cuda.synchronize()
+    assert tdec.decode_cross_attention.grouped_launches == n + 1
+    ref = tdec.decode_cross_attention_plain(q * 0.125 * k_s[:, :, None], kt, vt, 8000, 0, True)
+    torch.testing.assert_close(got, ref, **F32_TOL)
+
+
+@pytest.mark.cuda
+def test_decode_cross_entry_refuses_more_than_eight_splits(cuda):
+    """The C entry returns an error for a split past the portable cluster
+    size (9 CTAs) and the wrapper's check raises: there is no retry."""
+    from robustsq_whisper_torch.ops import _build
+
+    q, _, kt, vt = _split_inputs(cuda, "int4", 1)
+    out = torch.empty((1, 2, 1, 64), device=cuda)
+    kv = torch.tensor(100, dtype=torch.int32, device=cuda)
+    err = _build.load("decode_cross_attention")(
+        q.data_ptr(), None, kt.data_ptr(), vt.data_ptr(), None, kv.data_ptr(),
+        out.data_ptr(), None, None, 1, 2, 64, 1536, 1, 0, 0, *q.stride()[:3], 9,
+        _build.stream_ptr(cuda),
+    )
+    assert err != 0
+    with pytest.raises(RuntimeError, match="decode_cross_attention"):
+        _build.check(err, "decode_cross_attention")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("pos", [0, 5, 15])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -9,9 +9,13 @@ be compared on one card.
 tree's kernels and runs that tree's own ``chip_smoke.check_kernels`` and
 ``chip_smoke.check_flash_kernels``: each kernel against its plain version
 at the Whisper-medium shapes, with its median device time (CUDA-graph
-replay), its plain version's, its bound and the library call's. The last
-line is one JSON object: the tree, the card's name and power limit, and
-the kernel rows. Run it once a tree, in turns (parent, change, change,
+replay), its plain version's, its bound and the library call's. Then
+this script's own ``chip_smoke.cross_cold_times`` times that tree's packed
+int4 cross kernel with every layer read cold (the main path's 24-layer
+sweep and the JAX bench's batch 128 greedy and batch 64 x 5 beam shapes),
+so two trees are timed there by the same code. The last line is one JSON
+object: the tree, the card's name and power limit, the kernel rows and the
+cold cross rows. Run it once a tree, in turns (parent, change, change,
 parent), in one call on one card. Needs one CUDA device; without one it
 exits non-zero.
 """
@@ -19,14 +23,17 @@ exits non-zero.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import sys
 
+HERE = os.path.dirname(os.path.abspath(__file__))
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--root", default=HERE)
     ap.add_argument("--out", default=None, help="also write the JSON record here")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
@@ -50,7 +57,16 @@ def main() -> int:
     chip_smoke.log(f"tree {root}; kernel build {secs:.1f} s")
     rows = chip_smoke.check_kernels(torch, dev, 4, 32, 5)
     rows += chip_smoke.check_flash_kernels(torch, dev)
-    record = {"root": root, "gpu": chip_smoke.gpu_info(), "kernels": rows}
+    spec = importlib.util.spec_from_file_location("chip_smoke_timer", os.path.join(HERE, "chip_smoke.py"))
+    timer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timer)
+    from robustsq_whisper_torch.ops import decode_attention as xa
+
+    cold = timer.cross_cold_times(torch, dev, xa)
+    for r in cold:
+        chip_smoke.log(f"cold cross, {r['shape']}: S {r['splits']}, ms {r['ms']:.4f}, "
+                       f"bound_ms {r['bound_ms']:.4f}, share {r['share']:.3f}")
+    record = {"root": root, "gpu": chip_smoke.gpu_info(), "kernels": rows, "cross_cold": cold}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
