@@ -17,7 +17,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    call a layer over all 24, each layer read cold from HBM as the token
    loop reads it; ``ms`` replays one layer, warm in L2); the packed int4
    cross kernel is also timed cold at the JAX bench's greedy batch 128 and
-   beam batch 64 x 5 shapes;
+   beam batch 64 x 5 shapes. The self-cache rows (3a, 3b, 6) carry ``ms``
+   (the kernel through its C entry) and ``call_ms`` (the public call,
+   ``self_main_times``), both 20 calls a graph; 3a also sdpa's time as
+   ``library_ms`` and the call at the beam path's 20 rows as
+   ``beam_rows_ms``; ``self_cold_times`` times the public reads at the JAX
+   bench's shapes, each call on a layer read cold;
 3. small-input agreement: a small model decodes the same input with the
    kernels (f32, on the card) and with the plain versions (on the CPU):
    greedy over every self-cache layout (dense flat, 5-D dense and int8, flat
@@ -52,7 +57,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    forward launched 48 times and each backward kernel 24 times (24 layers,
    recomputed in the backward);
 6. last, the profiler reads the device's busy share of the encode, the
-   greedy run, both beam runs and one full-mode training step.
+   greedy run, both beam runs and one full-mode training step, and the
+   device time of the self-cache reads in each.
 
 The next-to-last lines are the JSON kernel record and the card's name and
 power limit (``nvidia-smi``); the last line is the JSON ok record. A
@@ -128,8 +134,8 @@ def time_ms(torch, fn, reps: int = 20, calls: int = 1) -> float:
 
 def device_busy(torch, fn, trace_path: str):
     """Run ``fn`` once under torch.profiler; returns (wall ms, summed device
-    kernel/memcpy/memset ms, top kernels by device ms) read from the
-    exported chrome trace."""
+    kernel/memcpy/memset ms, {name: device ms}) read from the exported
+    chrome trace."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -147,8 +153,7 @@ def device_busy(torch, fn, trace_path: str):
         if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
             busy += e["dur"] / 1e3
             by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return wall, busy, top
+    return wall, busy, by_name
 
 
 def time_events_ms(torch, fn, reps: int = 10) -> float:
@@ -255,8 +260,87 @@ def cross_cold_times(torch, dev, xa):
     return out
 
 
+SELF_ROWS = ("decode_self_attention", "decode_self_attention_int8", "settled_self_attention")
+# (label, read, rows, T_pad, live positions) of the self-cache reads: the
+# main path's last step (batch 4, beam 4 x 5 rows, 32 new tokens), each on
+# layer 7 of 24, warm in L2 after the first replay as the rows of phase 2
+# are; and the JAX bench's greedy batch 128 (bench.py:830-914) and beam
+# batch 64 x 5 (bench.py:1091-1140) at its 152-position cache, over layers
+# taken in turns, so many (``cold_layers``) that every call reads cold
+SELF_MAIN = (
+    ("3a batch 4, pos 52", "dense", 4, 56, 52),
+    ("3a beam rows 20, pos 52", "dense", 20, 56, 52),
+    ("3b batch 4, pos 52", "int8", 4, 56, 52),
+    ("6 beam rows 20, settled 48", "settled", 20, 64, 48),
+)
+SELF_COLD = (
+    ("3a bench greedy batch 128, pos 148", "dense", 128, 152, 148),
+    ("3a bench beam batch 64 x 5, pos 148", "dense", 320, 152, 148),
+    ("3b bench greedy batch 128, pos 148", "int8", 128, 152, 148),
+    ("6 bench beam batch 64 x 5, settled 144", "settled", 320, 152, 144),
+)
+
+
+def cold_layers(torch, dev, layer_bytes: int) -> int:
+    """Layers to take in turns so that every call reads its layer cold:
+    between two calls on one layer the others pass twice the L2 cache."""
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size", 50 << 20)
+    return max(2, 1 + -(-2 * l2 // layer_bytes))
+
+
+def self_read_times(torch, dev, sa, cases, reads=None):
+    """The public self-cache reads of a tree (``sa``, its
+    ``ops.self_attention``), bf16, one call on each layer of ``reads`` in
+    turn (of 24 layers; without ``reads``, every layer of a cache of
+    ``cold_layers`` layers), 20 calls or a few more captured in one graph:
+    for each case the median ms a call, its bound and share."""
+    heads, n_state = 16, 1024
+    g = torch.Generator(device=dev).manual_seed(3)
+    out = []
+    for label, read, rows, t_pad, live in cases:
+        rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
+        q, kn, vn = (rnd(rows, n_state).bfloat16() for _ in range(3))
+        n = torch.tensor(live, dtype=torch.int32, device=dev)
+        # a layer's K and V in the cache, and the int8 cache's scale leaf
+        per_layer = rows * t_pad * (2 * n_state + 256 if read == "int8" else 4 * n_state)
+        layers = 24 if reads else cold_layers(torch, dev, per_layer)
+        lis = [torch.tensor(i, dtype=torch.int32, device=dev)
+               for i in (reads or range(layers))]
+        if read == "int8":
+            cache = sa.quantize_flat_kv(rnd(layers, rows, t_pad, n_state),
+                                        rnd(layers, rows, t_pad, n_state), heads)
+            moved = rows * live * (2 * n_state + 4 * heads) + 4 * rows * n_state * 2
+        else:
+            cache = tuple(rnd(layers, rows, t_pad, n_state).bfloat16() for _ in range(2))
+            moved = 2 * rows * live * n_state * 2 + 4 * rows * n_state * 2
+        if read == "settled":
+            rmap = torch.randperm(rows, generator=g, device=dev).int()
+            fn = lambda: [sa.settled_self_attention(q, cache, n, x, rmap, heads) for x in lis]
+            # q in; f32 acc, m and l out, the row map in; no k_new, v_new
+            moved += rows * n_state * (6 - 8) + 2 * rows * heads * 4 + rows * 4
+        else:
+            fn = lambda: [sa.decode_self_attention(q, kn, vn, cache, n, x, heads=heads)
+                          for x in lis]
+        ms = time_ms(torch, fn, 10, calls=-(-20 // len(lis))) / len(lis)
+        b_ms, b_by = bound(moved, 4 * rows * n_state * live, "bf16")
+        out.append(dict(shape=label, rows=rows, t_pad=t_pad, live=live, layers=len(lis), ms=ms,
+                        bound_ms=b_ms, bound_by=b_by, share=b_ms / ms))
+        del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def self_main_times(torch, dev, sa):
+    return self_read_times(torch, dev, sa, SELF_MAIN, (7,))
+
+
+def self_cold_times(torch, dev, sa):
+    return self_read_times(torch, dev, sa, SELF_COLD)
+
+
 def check_kernels(torch, dev, batch: int, max_new: int, beam: int):
     """Phase 2: each kernel against its plain version at medium shapes."""
+    from robustsq_whisper_torch.ops import _build
     from robustsq_whisper_torch.ops import beam_gather as bg
     from robustsq_whisper_torch.ops import decode_attention as xa
     from robustsq_whisper_torch.ops import flash_attention as fa
@@ -357,35 +441,66 @@ def check_kernels(torch, dev, batch: int, max_new: int, beam: int):
             f"{r['share_of_bound']:.3f}), call_ms {r['call_ms']:.4f}")
     del kt, vt
 
-    # 3. decode self attention, dense flat cache, bf16, the last position
+    # 3. decode self attention, dense flat cache, bf16, the last position:
+    # ms is the kernel through its C entry, call_ms the public call
+    # (self_main_times), both 20 calls a graph (one a replay measures the
+    # host's replay rate); library_ms is sdpa over the strided view of the
+    # layer's slab with the new token written at pos, the function the step
+    # computes (it writes the token right after the read); beam_rows_ms the
+    # call at the beam path's batch x beam rows
+    assert (batch, beam, max_new) == (4, 5, 32), "SELF_MAIN holds the main path's shapes"
+    main = self_main_times(torch, dev, sa)  # 3a, 3a at the beam rows, 3b, 6
     t_pad = -(-(17 + 4 + max_new) // 8) * 8
     pos_i = 17 + 4 + max_new - 1
-    qd, kn, vn = (
-        torch.randn(batch, n_state, generator=g, device=dev).bfloat16()
-        for _ in range(3)
-    )
-    kc, vc = (
-        torch.randn(layers, batch, t_pad, n_state, generator=g, device=dev).bfloat16()
-        for _ in range(2)
-    )
     pos = torch.tensor(pos_i, dtype=torch.int32, device=dev)
-    call = lambda: sa.decode_self_attention(qd, kn, vn, (kc, vc), pos, li, heads=heads)
-    plain = lambda: sa.decode_self_attention_plain(
-        qd, kn, vn, (kc, vc), pos_i, 7, heads
+    self_lib = _build.load("decode_self_attention")
+    errs = []
+    for n_rows in (batch * beam, batch):  # the batch's tensors stay for sdpa
+        qd, kn, vn = (
+            torch.randn(n_rows, n_state, generator=g, device=dev).bfloat16()
+            for _ in range(3)
+        )
+        kc, vc = (
+            torch.randn(layers, n_rows, t_pad, n_state, generator=g, device=dev).bfloat16()
+            for _ in range(2)
+        )
+        call = lambda: sa.decode_self_attention(qd, kn, vn, (kc, vc), pos, li, heads=heads)
+        plain = lambda: sa.decode_self_attention_plain(qd, kn, vn, (kc, vc), pos_i, 7, heads)
+        errs.append((call().float() - plain().float()).abs().max().item())
+    out = torch.empty_like(qd)
+    kernel = lambda: self_lib(
+        qd.data_ptr(), kn.data_ptr(), vn.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+        li.data_ptr(), pos.data_ptr(), out.data_ptr(), batch, heads, hd, t_pad, 1,
+        _build.stream_ptr(dev),
     )
-    err = (call().float() - plain().float()).abs().max().item()
     b_ms, b_by = bound(
         2 * batch * pos_i * n_state * 2 + 4 * batch * n_state * 2,
         4 * batch * n_state * (pos_i + 1), "bf16",
     )
-    rows.append(dict(
+    row = dict(
         name="decode_self_attention", route="cuda",
         source="robustsq_whisper_torch/csrc/decode_self_attention.cu",
         replaces=f"{TPU_SRC}/self_attention.py:103",
-        max_abs_err=err, tol=2e-2,  # bf16 output rounding
-        ms=time_ms(torch, call, 50), plain_ms=time_ms(torch, plain, 10),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    ))
+        max_abs_err=max(errs), tol=2e-2,  # bf16 output rounding
+        ms=time_ms(torch, kernel, 10, calls=20), plain_ms=time_ms(torch, plain, 10),
+        bound_ms=b_ms, bound_by=b_by, call_ms=main[0]["ms"], beam_rows_ms=main[1]["ms"],
+    )
+    got = call()
+    for buf, new in ((kc, kn), (vc, vn)):
+        buf[7, :, pos_i] = new
+    heads_view = lambda x: x[7].view(batch, t_pad, heads, hd)[:, :pos_i + 1].transpose(1, 2)
+    q4, kr, vr = qd.view(batch, 1, heads, hd).transpose(1, 2), heads_view(kc), heads_view(vc)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_err = (sdpa(q4, kr, vr).transpose(1, 2).reshape(batch, n_state).float()
+                - got.float()).abs().max().item()
+    row["library_ms"] = time_ms(torch, lambda: sdpa(q4, kr, vr), 10, calls=20)
+    row["vs_library"] = row["call_ms"] / row["library_ms"]
+    rows.append(row)
+    log(f"kernel decode_self_attention: ms {row['ms']:.4f}, call_ms "
+        f"{row['call_ms']:.4f} vs sdpa {row['library_ms']:.4f} (vs_library "
+        f"{row['vs_library']:.3f}, sdpa against the call {sdpa_err:.2e}); at "
+        f"{batch * beam} rows call_ms {row['beam_rows_ms']:.4f}")
+    del kc, vc
 
     # 4. beam reorder of the flat cache (two bf16 leaves, in place), at the
     # beam-5 main path's last step and at the JAX bench's beam shape
@@ -433,10 +548,20 @@ def check_kernels(torch, dev, batch: int, max_new: int, beam: int):
         for _ in range(2)
     )
     rmap = torch.randperm(rb, generator=g, device=dev)
+    rmap32 = rmap.int()
     st = torch.tensor(settled, dtype=torch.int32, device=dev)
     call = lambda: sa.settled_self_attention(qd, (kc, vc), st, li, rmap, heads)
     plain = lambda: sa.settled_self_attention_plain(qd, (kc, vc), settled, 7, rmap, heads)
     err = max((a - b).abs().max().item() for a, b in zip(call(), plain()))
+    f32 = dict(dtype=torch.float32, device=dev)
+    m_o, l_o, acc_o = (torch.empty((rb, heads), **f32), torch.empty((rb, heads), **f32),
+                       torch.empty((rb, n_state), **f32))
+    settled_lib = _build.load("settled_self_attention")
+    kernel = lambda: settled_lib(
+        qd.data_ptr(), kc.data_ptr(), vc.data_ptr(), li.data_ptr(), st.data_ptr(),
+        rmap32.data_ptr(), m_o.data_ptr(), l_o.data_ptr(), acc_o.data_ptr(), rb, rb, heads,
+        hd, t_len, 1, _build.stream_ptr(dev),
+    )
     b_ms, b_by = bound(
         2 * rb * settled * n_state * 2 + rb * n_state * (2 + 4) + 2 * rb * heads * 4,
         4 * rb * n_state * settled, "bf16",
@@ -446,11 +571,11 @@ def check_kernels(torch, dev, batch: int, max_new: int, beam: int):
         source="robustsq_whisper_torch/csrc/settled_self_attention.cu",
         replaces=f"{TPU_SRC}/self_attention.py:276",
         max_abs_err=err, tol=1e-3,  # f32 state from bf16 inputs
-        ms=time_ms(torch, call, 50), plain_ms=time_ms(torch, plain, 10),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ms=time_ms(torch, kernel, 10, calls=20), plain_ms=time_ms(torch, plain, 10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, call_ms=main[3]["ms"],
     ))
+    del kc, vc
     # 3b. decode self attention, int8 flat cache (int8 K/V, bf16 scales)
-    t_pad = -(-(17 + 4 + max_new) // 8) * 8
     qd, kn, vn = (
         torch.randn(batch, n_state, generator=g, device=dev).bfloat16()
         for _ in range(3)
@@ -462,6 +587,12 @@ def check_kernels(torch, dev, batch: int, max_new: int, beam: int):
     call = lambda: sa.decode_self_attention(qd, kn, vn, cache8, pos, li, heads=heads)
     plain = lambda: sa.decode_self_attention_plain(qd, kn, vn, cache8, pos_i, 7, heads)
     err = (call().float() - plain().float()).abs().max().item()
+    int8_lib = _build.load("decode_self_attention", "decode_self_attention_int8")
+    kernel = lambda: int8_lib(
+        qd.data_ptr(), kn.data_ptr(), vn.data_ptr(), *(c.data_ptr() for c in cache8),
+        li.data_ptr(), pos.data_ptr(), out.data_ptr(), batch, heads, hd, t_pad, 1,
+        _build.stream_ptr(dev),
+    )
     # a live position's int8 K and V, and its K and V scales (bf16 lanes
     # [0, 2 * heads) of the scale row; the rest of the row is not needed)
     b_ms, b_by = bound(
@@ -473,10 +604,19 @@ def check_kernels(torch, dev, batch: int, max_new: int, beam: int):
         source="robustsq_whisper_torch/csrc/decode_self_attention.cu",
         replaces=f"{TPU_SRC}/self_attention.py:103",
         max_abs_err=err, tol=2e-2,  # bf16 output rounding
-        ms=time_ms(torch, call, 50), plain_ms=time_ms(torch, plain, 10),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ms=time_ms(torch, kernel, 10, calls=20), plain_ms=time_ms(torch, plain, 10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, call_ms=main[2]["ms"],
     ))
     del cache8
+    for r in rows:
+        if r["name"] in SELF_ROWS:
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+            log(f"kernel {r['name']}: ms {r['ms']:.4f} (share of bound "
+                f"{r['share_of_bound']:.3f}), call_ms {r['call_ms']:.4f}")
+    for r in self_cold_times(torch, dev, sa):
+        log(f"self-cache read at {r['shape']} ({r['layers']} layers in turns): "
+            f"ms {r['ms']:.4f}, "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}), share {r['share']:.3f}")
 
     # 2c. the cross kernel with return_state over the time-minor self cache
     # (dense bf16, T_pad a multiple of 128), at the greedy path's last step;
@@ -1290,6 +1430,11 @@ def run_layout_paths(torch, dev, models, batch: int, max_new: int):
     return launches
 
 
+# the self-cache read kernels' names: the shared read's, and those of the
+# two kernels it replaced (to profile an older tree)
+SELF_KERNELS = ("self_cache_read_kernel", "decode_self_kernel", "settled_kernel")
+
+
 def profile_runs(torch, greedy, beam, train) -> None:
     """Device busy share of the encode, the greedy run, the two beam runs
     and one full-mode training step, by profiler; last, because the
@@ -1309,10 +1454,14 @@ def profile_runs(torch, greedy, beam, train) -> None:
         ("beam_run_deferred", lambda: deferred(b_memory, b_prompt)),
         ("train_full_step", lambda: step(state, batch, gen, 0)),
     ):
-        wall, busy, top = device_busy(torch, fn, str(BUILD / f"trace_{phase}.json"))
+        wall, busy, by_name = device_busy(torch, fn, str(BUILD / f"trace_{phase}.json"))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        reads = {n: t for n, t in by_name.items() if any(k in n for k in SELF_KERNELS)}
         log(f"profile {phase}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
             f"({busy / wall:.1%}); top kernels (ms): "
-            + "; ".join(f"{n[:60]} {t:.2f}" for n, t in top))
+            + "; ".join(f"{n[:60]} {t:.2f}" for n, t in top)
+            + "; self-cache reads (ms): "
+            + ("; ".join(f"{n[:70]} {t:.3f}" for n, t in reads.items()) or "none"))
 
 
 def main() -> int:

@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the flash-attention kernels
 // (flash_fwd_sm90.cuh, flash_attention_bwd.cu; decode_cross_attention.cu
-// takes its cp.async wrappers): PTX wrappers for mbarriers, named
+// takes its cp.async wrappers, self_cache_read.cuh its exp2): PTX wrappers for mbarriers, named
 // barriers, cp.async and wgmma, the 128-byte swizzle and its wgmma
 // descriptors, and the row-major tiles (128-byte rows of 64 bf16 channels,
 // a row every heads * 64 elements) that a loader warpgroup moves into

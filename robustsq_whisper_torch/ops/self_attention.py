@@ -26,6 +26,11 @@ indirection; ``window_attention_state`` and ``new_token_state`` give the
 states of the logically ordered window and of the new token, and
 ``merge_attention_states`` combines them. Those three are plain PyTorch,
 as they are plain XLA in JAX; ``deferred_self_attention`` composes all.
+
+Both kernels are one read of the flat cache (``csrc/self_cache_read.cuh``):
+one CTA a (row, head), or for the int8 cache a pair of heads, over tiles
+of ``SELF_TILE`` positions, each tile one round trip. The cache and q,
+k_new and v_new must be 16-byte aligned.
 """
 
 from __future__ import annotations
@@ -37,7 +42,16 @@ from .decode_attention import decode_cross_attention
 
 BLOCK_POS = 8  # the cache length is padded to a multiple of this
 NEG = -1e30  # the JAX package's mask value for online-softmax states
+SELF_TILE = 64  # positions a CTA of the self-cache read takes a round trip
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_operands(tensors, what: str) -> None:
+    for t in tensors:
+        if t.device != tensors[0].device:
+            raise ValueError(f"{what} must be on one device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what} must be contiguous and 16-byte aligned")
 
 
 def quantize_flat_kv(k: torch.Tensor, v: torch.Tensor, heads: int):
@@ -143,11 +157,7 @@ def decode_self_attention(
         not quantized and any(t.dtype != q.dtype for t in cache)
     ):
         raise TypeError("q, k/v and a dense cache must all be f32 or bf16")
-    for t in tensors:
-        if t.device != q.device:
-            raise ValueError("q, k/v and the cache must be on one device")
-        if not t.is_contiguous() or t.data_ptr() % 8:
-            raise ValueError("q, k/v and the cache must be contiguous")
+    _check_operands(tensors, "q, k/v and the cache")
     hd = n_state // heads
     if hd != 64:
         raise ValueError(f"the kernel takes head_dim 64, got {hd}")
@@ -264,12 +274,9 @@ def settled_self_attention(
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in cache):
         raise TypeError("q and the cache must all be f32 or bf16")
-    for t in (q, k_flat, v_flat, row_map):
-        if t.device != q.device:
-            raise ValueError("q, row_map and the cache must be on one device")
-    for t in (q, k_flat, v_flat):
-        if not t.is_contiguous() or t.data_ptr() % 8:
-            raise ValueError("q and the cache must be contiguous")
+    if row_map.device != q.device:
+        raise ValueError("q, row_map and the cache must be on one device")
+    _check_operands((q, k_flat, v_flat), "q and the cache")
     hd = n_state // heads
     if hd != 64:
         raise ValueError(f"the kernel takes head_dim 64, got {hd}")

@@ -227,21 +227,38 @@ def test_decode_cross_entry_refuses_more_than_eight_splits(cuda):
         _build.check(err, "decode_cross_attention")
 
 
+# (pos, rows, heads, t_pad): the small shape (pos == t_pad: every
+# position live), an odd head count (the int8 read takes heads in pairs),
+# then the main path's widths (16 heads, n_state 1024) at its 56-position
+# cache (batch 4, beam 20 rows), the edges of a 64-position tile over
+# Whisper's 448-position text context and its full cache, and the JAX
+# bench's greedy batch 128
+SELF_CASES = [
+    (0, 3, 2, 16), (5, 3, 2, 16), (15, 3, 2, 16), (16, 3, 2, 16), (13, 3, 3, 16),
+    (0, 4, 16, 56), (52, 4, 16, 56), (52, 20, 16, 56),
+    (1, 4, 16, 448), (63, 4, 16, 448), (64, 20, 16, 448), (65, 4, 16, 448),
+    (447, 4, 16, 448), (448, 4, 16, 448), (148, 128, 16, 152),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("pos", [0, 5, 15])
+@pytest.mark.parametrize("pos,rows,heads,t_pad", SELF_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_self_kernel_matches_plain(cuda, pos, dtype):
+def test_decode_self_kernel_matches_plain(cuda, pos, rows, heads, t_pad, dtype):
     q, kn, vn, kc, vc = (
-        torch.from_numpy(x).to(cuda, dtype) for x in _self_inputs(pos)
+        torch.from_numpy(x).to(cuda, dtype)
+        for x in _self_inputs(pos, b=rows, t_pad=t_pad, heads=heads, n_state=heads * 64)
     )
     p = torch.tensor(pos, dtype=torch.int32, device=cuda)
     li = torch.tensor(1, dtype=torch.int32, device=cuda)
-    got = tself.decode_self_attention(q, kn, vn, (kc, vc), p, li, heads=2)
+    n = tself.decode_self_attention.launches
+    got = tself.decode_self_attention(q, kn, vn, (kc, vc), p, li, heads=heads)
     torch.cuda.synchronize()
+    assert tself.decode_self_attention.launches == n + 1
     # host ints for pos / layer_idx are copied to the card
-    again = tself.decode_self_attention(q, kn, vn, (kc, vc), pos, 1, heads=2)
+    again = tself.decode_self_attention(q, kn, vn, (kc, vc), pos, 1, heads=heads)
     assert torch.equal(again, got)
-    ref = tself.decode_self_attention_plain(q, kn, vn, (kc, vc), pos, 1, 2)
+    ref = tself.decode_self_attention_plain(q, kn, vn, (kc, vc), pos, 1, heads)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(got.float(), ref.float(), **tol)
     if pos == 0:
@@ -301,18 +318,31 @@ def test_beam_reorder_kernel_matches_plain(cuda, live, src):
         assert torch.equal(r[:, :, p:], x[:, :, p:])  # the tail is kept
 
 
+# (settled, rows, t_pad): the deferred beam path's 20 rows over its
+# 64-position cache, the edges of a tile over 448 positions and the full
+# cache, and the JAX bench's beam 64 x 5 rows at settled 144
+SETTLED_CASES = [
+    (0, 20, 56), (5, 20, 56), (48, 20, 56), (48, 20, 64),
+    (1, 4, 448), (63, 4, 448), (64, 4, 448), (65, 20, 448), (447, 4, 448),
+    (448, 4, 448), (144, 320, 152),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("settled", [0, 5, 48])
+@pytest.mark.parametrize("settled,rows,t_pad", SETTLED_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_settled_kernel_matches_plain(cuda, settled, dtype):
+def test_settled_kernel_matches_plain(cuda, settled, rows, t_pad, dtype):
+    """Through a row map with repeats (every third row reads its
+    neighbour's physical row); settled == 0 is exactly (-1e30, 0, 0)."""
     rng = np.random.default_rng(settled)
-    rows, layers, t_pad, n_state = 20, 2, 56, 1024
+    layers, n_state = 2, 1024
     q = torch.from_numpy(rng.standard_normal((rows, n_state), np.float32))
     kc, vc = (
         torch.from_numpy(rng.standard_normal((layers, rows, t_pad, n_state), np.float32))
         for _ in range(2)
     )
     row_map = torch.from_numpy(rng.permutation(rows))
+    row_map[1::3] = row_map[0::3][: row_map[1::3].numel()]
     args = [t.to(cuda, dtype) for t in (q, kc, vc)]
     n = tself.settled_self_attention.launches
     got = tself.settled_self_attention(
@@ -331,20 +361,23 @@ def test_settled_kernel_matches_plain(cuda, settled, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pos", [0, 5, 16])
+@pytest.mark.parametrize("pos,rows,heads,t_pad", SELF_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_int8_decode_self_kernel_matches_plain(cuda, pos, dtype):
+def test_int8_decode_self_kernel_matches_plain(cuda, pos, rows, heads, t_pad, dtype):
     """The int8 flat cache (int8 K/V, bf16 scale leaf); pos = 0 reads no
     position and returns exactly the new token's V."""
-    q, kn, vn, kc, vc = (torch.from_numpy(x).to(cuda) for x in _self_inputs(pos, heads=2))
-    cache = tself.quantize_flat_kv(kc, vc, 2)
+    q, kn, vn, kc, vc = (
+        torch.from_numpy(x).to(cuda)
+        for x in _self_inputs(pos, b=rows, t_pad=t_pad, heads=heads, n_state=heads * 64)
+    )
+    cache = tself.quantize_flat_kv(kc, vc, heads)
     q, kn, vn = (x.to(dtype) for x in (q, kn, vn))
     n = tself.decode_self_attention.int8_launches
-    got = tself.decode_self_attention(q, kn, vn, cache, pos, 1, heads=2)
+    got = tself.decode_self_attention(q, kn, vn, cache, pos, 1, heads=heads)
     torch.cuda.synchronize()
     assert tself.decode_self_attention.int8_launches == n + 1
     ref = tself.decode_self_attention_plain(
-        q.cpu(), kn.cpu(), vn.cpu(), tuple(c.cpu() for c in cache), pos, 1, 2
+        q.cpu(), kn.cpu(), vn.cpu(), tuple(c.cpu() for c in cache), pos, 1, heads
     )
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(got.float().cpu(), ref.float(), **tol)

@@ -13,9 +13,13 @@ replay), its plain version's, its bound and the library call's. Then
 this script's own ``chip_smoke.cross_cold_times`` times that tree's packed
 int4 cross kernel with every layer read cold (the main path's 24-layer
 sweep and the JAX bench's batch 128 greedy and batch 64 x 5 beam shapes),
-so two trees are timed there by the same code. The last line is one JSON
-object: the tree, the card's name and power limit, the kernel rows and the
-cold cross rows. Run it once a tree, in turns (parent, change, change,
+so two trees are timed there by the same code, and its own
+``chip_smoke.self_main_times`` and ``chip_smoke.self_cold_times`` time
+that tree's public self-cache reads the same way, at the main path's
+shapes (20 calls a graph) and at the JAX bench's (layers in turns, so many
+that every call reads cold). The last line is one JSON object: the tree,
+the card's name and power limit, the kernel rows, the cold cross rows and
+the self-cache rows. Run it once a tree, in turns (parent, change, change,
 parent), in one call on one card. Needs one CUDA device; without one it
 exits non-zero.
 """
@@ -61,12 +65,17 @@ def main() -> int:
     timer = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(timer)
     from robustsq_whisper_torch.ops import decode_attention as xa
+    from robustsq_whisper_torch.ops import self_attention as sa
 
     cold = timer.cross_cold_times(torch, dev, xa)
-    for r in cold:
-        chip_smoke.log(f"cold cross, {r['shape']}: S {r['splits']}, ms {r['ms']:.4f}, "
-                       f"bound_ms {r['bound_ms']:.4f}, share {r['share']:.3f}")
-    record = {"root": root, "gpu": chip_smoke.gpu_info(), "kernels": rows, "cross_cold": cold}
+    self_reads = timer.self_main_times(torch, dev, sa) + timer.self_cold_times(torch, dev, sa)
+    for kind, rs in (("cold cross", cold), ("self-cache read", self_reads)):
+        for r in rs:
+            split = f"S {r['splits']}, " if "splits" in r else f"{r['layers']} layers, "
+            chip_smoke.log(f"{kind}, {r['shape']}: {split}ms {r['ms']:.5f}, "
+                           f"bound_ms {r['bound_ms']:.5f}, share {r['share']:.3f}")
+    record = {"root": root, "gpu": chip_smoke.gpu_info(), "kernels": rows, "cross_cold": cold,
+              "self_reads": self_reads}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -14,8 +14,9 @@ reorder and with ``defer_reorder=8``. Each path builds its engine, runs one
 warm-up transcribe, then times ``--reps`` transcribes (host wall clock to a
 ``torch.cuda.synchronize()``). Then, last because the profiler slows later
 host work, one transcribe of each path runs under ``torch.profiler``,
-which counts the device kernels and the PyTorch operator calls it made:
-counts that do not depend on the host's load, where the wall times do.
+which counts the device kernels and the PyTorch operator calls it made
+(counts that do not depend on the host's load, where the wall times do)
+and sums the device time of every kernel and of the self-cache reads.
 The last line is one JSON object: the package's path, the card's name and
 power limit, and for each path its times and median in ms, those counts
 and a hash of the transcribed texts. Needs one CUDA device; without one
@@ -41,9 +42,11 @@ PATHS = {
 BATCH, MAX_NEW = 4, 32
 
 
-def op_counts(torch, fn, trace_path: str) -> dict:
+def op_counts(torch, fn, trace_path: str, self_kernels) -> dict:
     """Run ``fn`` once under torch.profiler; the device kernels it launched
-    and the PyTorch operator calls it made, read from the chrome trace."""
+    and the PyTorch operator calls it made, read from the chrome trace,
+    the summed device ms of every kernel, and the device ms of the kernels
+    whose names hold one of ``self_kernels``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -52,8 +55,15 @@ def op_counts(torch, fn, trace_path: str) -> dict:
         torch.cuda.synchronize()
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
-        cats = [e.get("cat") for e in json.load(f)["traceEvents"]]
-    return dict(device_kernels=cats.count("kernel"), cpu_ops=cats.count("cpu_op"))
+        events = json.load(f)["traceEvents"]
+    cats = [e.get("cat") for e in events]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    reads = {}
+    for e in kernels:
+        if any(k in e["name"] for k in self_kernels):
+            reads[e["name"]] = reads.get(e["name"], 0.0) + e["dur"] / 1e3
+    return dict(device_kernels=cats.count("kernel"), cpu_ops=cats.count("cpu_op"),
+                kernel_ms=sum(e["dur"] for e in kernels) / 1e3, self_read_ms=reads)
 
 
 def main() -> int:
@@ -108,7 +118,9 @@ def main() -> int:
                          "robustsq_whisper_torch", "_build", "time_transcribes_trace.json")
     os.makedirs(os.path.dirname(trace), exist_ok=True)
     for name, engine in engines.items():
-        record["paths"][name].update(op_counts(torch, lambda: engine.transcribe(items), trace))
+        record["paths"][name].update(op_counts(
+            torch, lambda: engine.transcribe(items), trace, chip_smoke.SELF_KERNELS
+        ))
         chip_smoke.log(f"{name}: {record['paths'][name]}")
     os.remove(trace)
     line = json.dumps(record)
