@@ -43,6 +43,23 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    prints frontend, encode, cross-KV + prefill and token-loop times;
    speculative decode must give the 5-D greedy's tokens with the decoder in
    f32 (in bf16 the share of identical tokens is printed);
+4b. the entry points at Whisper-medium: a Kaldi data dir of 8 utterances
+   (the synthetic pairs as WAV) and a lora-mode checkpoint of
+   ``conf/tswhisper/train_tsasr_whisper_medium_lora_qkvo_r16_.yaml``
+   (seeded init, saved with ``save_checkpoint``) in a temporary directory;
+   ``cli.decode.main`` decodes the dir from that checkpoint greedy and at
+   beam 5 (int4 cross K/V, 32 new tokens, batch 4, the mini BPE ranks):
+   ``text`` and ``score.txt`` must be whole, the path's kernels must have
+   launched, and ``text`` must be byte-identical to ``decode_dataset``'s
+   over the same weights in memory; then ``make_server`` over
+   ``cli.serve.build_engine`` answers 8 concurrent ``POST
+   /v1/transcribe`` requests (base64 WAV), each with ``engine.transcribe``'s
+   text for its pair, and ``/healthz`` and ``/stats`` are read. Every text
+   of the phase is made of token ids (the tokenizer's ``decode`` is
+   swapped), so each comparison is token-exact. The LoRA factors are saved
+   seeded and nonzero, and the checkpoint's serving restore must equal
+   ``merge_lora`` of the in-memory weights tensor for tensor. The decode walls and RTFs and the request latencies are
+   printed with the card's name and power limit;
 5. training: the three flash-attention training kernels (forward, dQ,
    dK/dV) against their plain versions at the medium training shape
    (batch 8 x 16 heads, T = 1500 + 16, bf16) and with a mask at a smaller
@@ -1182,20 +1199,26 @@ def launch_counters():
     }
 
 
-def counted_transcribe(torch, engine, items, path: str, expect):
-    """Transcribe with every launch count set to 0 just before and read just
-    after; each kernel in ``expect`` must have launched. Returns (wall s,
-    {kernel: launches})."""
+def counted(torch, fn):
+    """Run ``fn`` with every launch count set to 0 just before and read just
+    after; returns (its result, wall s, {kernel: launches})."""
     counters = launch_counters()
-    engine.warmup()
     torch.cuda.synchronize()
     for w, attr in counters.values():
         setattr(w, attr, 0)
     t0 = time.perf_counter()
-    texts = engine.transcribe(items)
+    out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {n: getattr(w, attr) for n, (w, attr) in counters.items()}
+    return out, wall, {n: getattr(w, attr) for n, (w, attr) in counters.items()}
+
+
+def counted_transcribe(torch, engine, items, path: str, expect):
+    """Transcribe with every launch count set to 0 just before and read just
+    after; each kernel in ``expect`` must have launched. Returns (wall s,
+    {kernel: launches})."""
+    engine.warmup()
+    texts, wall, counts = counted(torch, lambda: engine.transcribe(items))
     log(f"main path {path}: transcribe {wall * 1e3:.1f} ms for {len(items)} x 30 s; "
         f"launches {counts}")
     missing = [n for n in expect if counts[n] == 0]
@@ -1430,6 +1453,263 @@ def run_layout_paths(torch, dev, models, batch: int, max_new: int):
     return launches
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+ENTRY_CONFIG = os.path.join(ROOT, "conf/tswhisper/train_tsasr_whisper_medium_lora_qkvo_r16_.yaml")
+ENTRY_RANKS = os.path.join(ROOT, "tests/assets/mini_ranks.tiktoken")
+ENTRY_PATHS = {  # path: (beam size, kernels it must launch)
+    "cli.decode greedy": (1, GREEDY_KERNELS),
+    "cli.decode beam 5": (5, ("decode_cross_attention_grouped", "beam_reorder_cache",
+                              "decode_self_attention", "flash_attention_tmaj")),
+}
+ENTRY_REFS = ("the cat sat on the mat", "a quick brown fox", "hello from the other side",
+              "one two three four", "speak to me", "the end of the line",
+              "it's all in the mind", "then there were none")
+
+
+def write_data_dir(root: str, n: int):
+    """A Kaldi data dir of ``n`` utterances (wav.scp, text, utt2spk,
+    enroll.scp): the synthetic 30 s speech and 10 s enrollments as WAV."""
+    from robustsq_whisper_torch.data import kaldi_io
+
+    wav, text, utt2spk, enroll = {}, {}, {}, {}
+    for i, (speech, enr) in enumerate(synthetic_pairs(n, seed=1)):
+        utt = f"{100 + i}-0-0000_{200 + i}-0-0000_spk1"
+        wav[utt] = os.path.join(root, "wavs", f"{utt}.wav")
+        enroll[utt] = os.path.join(root, "wavs", f"{utt}_enroll.wav")
+        kaldi_io.write_wav(wav[utt], speech)
+        kaldi_io.write_wav(enroll[utt], enr)
+        text[utt] = ENTRY_REFS[i % len(ENTRY_REFS)]
+        utt2spk[utt] = str(100 + i)
+    for name, rows in (("wav.scp", wav), ("text", text), ("utt2spk", utt2spk),
+                       ("enroll.scp", enroll)):
+        kaldi_io.write_scp(os.path.join(root, "data", name), rows)
+    return os.path.join(root, "data"), wav, enroll
+
+
+def serve_requests(port: int, wavs, enrolls):
+    """Every (speech, enrollment) WAV pair POSTed at once to /v1/transcribe
+    as base64 bodies; returns the responses in order."""
+    import base64
+    import threading
+    import urllib.request
+
+    def body(path):
+        with open(path, "rb") as f:
+            return base64.b64encode(f.read()).decode()
+
+    out = [None] * len(wavs)
+
+    def post(i):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/transcribe",
+            data=json.dumps({"speech_wav": body(wavs[i]), "enroll_wav": body(enrolls[i])}).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            out[i] = json.loads(resp.read())
+
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(len(wavs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if any(o is None for o in out):
+        raise AssertionError("a request got no answer")
+    return out
+
+
+def get_json(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+class TokenIds:
+    """A tokenizer whose text is the token ids; ``encode`` is ``inner``'s."""
+
+    def __init__(self, inner=None):
+        self.inner = inner
+
+    def encode(self, text):
+        return self.inner.encode(text)
+
+    def decode(self, ids):
+        return " ".join(str(int(i)) for i in ids)
+
+
+def run_entry_points(torch, dev):
+    """Phase 4b: the entry points a user runs, at Whisper-medium. A Kaldi
+    data dir of 8 utterances and a lora-mode checkpoint of the medium
+    config (seeded init) are written to a temporary directory; then
+    ``cli.decode.main`` decodes the dir greedy and at beam 5 (int4 cross
+    K/V, 32 new tokens, batch 4) from that checkpoint, and its hypotheses
+    must equal ``decode_dataset`` over the same weights in memory; then the
+    ``cli.serve`` engine answers 8 concurrent HTTP requests, each with
+    ``engine.transcribe``'s text for its pair. ``load_tokenizer`` is patched
+    for the phase to give texts of token ids: random weights rarely emit an
+    id the mini ranks hold, so BPE texts would be empty and compare
+    nothing. Returns {path: launches}."""
+    import shutil
+    import tempfile
+    import threading
+
+    from robustsq_whisper_torch.cli import decode as cli_decode
+    from robustsq_whisper_torch.cli import serve as cli_serve
+    from robustsq_whisper_torch.cli.train import build_model
+    from robustsq_whisper_torch.data import kaldi_io
+    from robustsq_whisper_torch.decode.pipeline import decode_dataset
+    from robustsq_whisper_torch.serve import audio_from_bytes, make_server
+    from robustsq_whisper_torch.tokenizer import whisper_tokenizer
+    from robustsq_whisper_torch.train import create_train_state
+    from robustsq_whisper_torch.train.checkpoint import (
+        restore_serving_variables, save_checkpoint,
+    )
+    from robustsq_whisper_torch.train.lora import merge_lora
+    from robustsq_whisper_torch.utils.config import load_experiment
+
+    root = tempfile.mkdtemp(prefix="entry_points_")
+    load_tokenizer = whisper_tokenizer.load_tokenizer
+    whisper_tokenizer.load_tokenizer = lambda assets: TokenIds(load_tokenizer(assets))
+    launches, report = {}, {}
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        data_dir, wavs, enrolls = write_data_dir(root, 8)
+        exp = load_experiment(ENTRY_CONFIG)
+        model = build_model(exp, seed=0, device=dev)
+        state = create_train_state(model, exp.train, device=dev)
+        # b starts at 0, where the merge is the identity: seed it nonzero
+        gen = torch.Generator().manual_seed(2)
+        with torch.no_grad():
+            for _, b in state.lora.values():
+                b.copy_(torch.randn(b.shape, generator=gen) * 0.02)
+        t1 = time.perf_counter()
+        save_checkpoint(os.path.join(root, "exp", "checkpoints"), 0, state, epoch=0)
+        log(f"entry points: data dir and medium {exp.train.mode} model {t1 - t0:.1f} s, "
+            f"checkpoint saved {time.perf_counter() - t1:.1f} s")
+
+        # the in-memory weights as the serving restore makes them: each f32
+        # parameter and factor cast to bf16 on the host, the factors merged
+        def host_bf16(t):
+            t = t.detach().cpu()
+            return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
+
+        params = {n: host_bf16(p) for n, p in model.named_parameters()}
+        memory_sd = merge_lora(
+            params, {n: (host_bf16(a), host_bf16(b)) for n, (a, b) in state.lora.items()},
+            exp.train.lora)
+        unmerged = [n for n in state.lora if torch.equal(memory_sd[n], params[n])]
+        if not state.lora or unmerged:
+            raise AssertionError(f"{len(state.lora)} LoRA targets; the merge left "
+                                 f"{len(unmerged)} of them as they were: {unmerged[:3]}")
+        persistent = set(model.state_dict())
+        memory_sd.update({n: b.detach().cpu() for n, b in model.named_buffers()
+                          if n in persistent})
+        del state, model, params
+        torch.cuda.empty_cache()
+        restored, _, _ = restore_serving_variables(
+            os.path.join(root, "exp", "checkpoints"), torch.bfloat16, exp.train)
+        differ = [k for k, v in memory_sd.items() if k not in restored
+                  or restored[k].dtype != v.dtype or not torch.equal(restored[k], v)]
+        if differ or restored.keys() != memory_sd.keys():
+            raise AssertionError(f"the serving restore differs from the in-memory weights: "
+                                 f"{differ[:3]}")
+        log(f"entry points: the serving restore equals merge_lora of the in-memory weights, "
+            f"{len(restored)} tensors")
+        del restored
+
+        for path, (beam, expect) in ENTRY_PATHS.items():
+            inf = os.path.join(root, f"decode_beam{beam}.yaml")
+            with open(inf, "w") as f:
+                f.write(f"decode_conf:\n  beam_size: {beam}\n  max_new_tokens: 32\n"
+                        "  quantize_cross_kv: true\n")
+            out = os.path.join(root, f"decode_beam{beam}")
+            argv = ["--config", ENTRY_CONFIG, "--inference_config", inf, "--data_dir", data_dir,
+                    "--expdir", os.path.join(root, "exp"), "--output_dir", out,
+                    "--cross_kv_bits", "4", "--batch_size", "4",
+                    "--tokenizer_assets", ENTRY_RANKS, "--device", str(dev)]
+            rc, wall, counts = counted(torch, lambda: cli_decode.main(argv))
+            launches[path] = counts
+            hyps = kaldi_io.read_scp(os.path.join(out, "text"))
+            with open(os.path.join(out, "score.txt")) as f:
+                scores = dict(line.split() for line in f)
+            log(f"{path}: rc {rc}, main {wall:.2f} s, RTF {float(scores['rtf']):.2f} "
+                f"(decode loop), wer {scores.get('wer')} cer {scores.get('cer')} (of texts "
+                f"of token ids); launches {counts}")
+            missing = [n for n in expect if counts[n] == 0]
+            if rc != 0 or missing:
+                raise AssertionError(f"{path}: rc {rc}, kernels not launched: {missing}")
+            if len(hyps) != 8 or not {"wer", "cer", "rtf"} <= scores.keys():
+                raise AssertionError(f"{path}: {len(hyps)} hypotheses, score keys {sorted(scores)}")
+            if not any(hyps.values()):
+                raise AssertionError(f"{path}: every hypothesis is empty, so the comparison "
+                                     f"below would hold no tokens")
+            d = cli_decode.prepare(argv)
+            enc, dec = d.modules(memory_sd)
+            ref = decode_dataset(enc, dec, d.dataset, d.tokenizer, d.dcfg, batch_size=4,
+                                 output_dir=out + "_in_memory", device=dev)
+            del enc, dec
+            with open(os.path.join(out, "text"), "rb") as f, \
+                    open(os.path.join(out + "_in_memory", "text"), "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"{path}: hypotheses from the checkpoint differ from "
+                                         f"the in-memory model's: {hyps} vs {ref.hyps}")
+            report[path] = {"main_s": wall, "rtf": float(scores["rtf"]),
+                            "decode_s": ref.wall_seconds}
+        log("entry points: cli.decode hypotheses from the checkpoint equal the in-memory "
+            "model's, greedy and beam 5")
+
+        args = cli_serve.parse_args([
+            "--config", ENTRY_CONFIG, "--inference_config", os.path.join(root, "decode_beam1.yaml"),
+            "--expdir", os.path.join(root, "exp"), "--batch_size", "4", "--max_wait_ms", "15",
+            "--cross_kv_bits", "4", "--tokenizer_assets", ENTRY_RANKS, "--device", str(dev),
+        ])
+        engine, info = cli_serve.build_engine(args)
+        engine.warmup()
+        server, batcher = make_server(engine, "127.0.0.1", 0, args.max_wait_ms, info=info)
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            answers, wall, counts = counted(torch, lambda: serve_requests(port, list(wavs.values()),
+                                                                          list(enrolls.values())))
+            launches["cli.serve"] = counts
+            health, stats = get_json(port, "/healthz"), get_json(port, "/stats")
+        finally:
+            server.shutdown()
+            batcher.close()
+            server.server_close()
+            thread.join(timeout=30)
+        for (utt, w), e, a in zip(wavs.items(), enrolls.values(), answers):
+            with open(w, "rb") as f, open(e, "rb") as g:
+                pair = (audio_from_bytes(f.read()), audio_from_bytes(g.read()))
+            want = engine.transcribe([pair])[0]
+            if a["text"] != want:
+                raise AssertionError(f"cli.serve {utt}: {a['text']!r} != engine {want!r}")
+        if not any(a["text"] for a in answers):
+            raise AssertionError("cli.serve: every text is empty, so the comparison held no tokens")
+        lat = sorted(a["latency_ms"] for a in answers)
+        report["cli.serve"] = {"wall_s": wall, "p50_ms": statistics.median(lat),
+                               "max_ms": lat[-1], "batches": stats["batches"]}
+        log(f"cli.serve: 8 concurrent requests in {wall:.2f} s, latency p50 "
+            f"{statistics.median(lat):.1f} ms max {lat[-1]:.1f} ms, batches {stats['batches']}, "
+            f"texts equal engine.transcribe; healthz {health['status']} compiled "
+            f"{health['compiled']}; stats {stats}; launches {counts}")
+        missing = [n for n in GREEDY_KERNELS if counts[n] == 0]
+        if missing or health["status"] != "ok" or stats["requests"] != 8 or stats["errors"]:
+            raise AssertionError(f"cli.serve: kernels not launched {missing}, health {health}, "
+                                 f"stats {stats}")
+        del engine
+        torch.cuda.empty_cache()
+    finally:
+        whisper_tokenizer.load_tokenizer = load_tokenizer
+        shutil.rmtree(root, ignore_errors=True)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"entry points on {gpu_info()}: {json.dumps(report)}")
+    return launches
+
+
 # the self-cache read kernels' names: the shared read's, and those of the
 # two kernels it replaced (to profile an older tree)
 SELF_KERNELS = ("self_cache_read_kernel", "decode_self_kernel", "settled_kernel")
@@ -1492,10 +1772,11 @@ def main() -> int:
     greedy_launches, greedy = run_main_path(torch, dev, models, batch, max_new)
     beam_launches, beam_run = run_beam_paths(torch, dev, models, batch, max_new)
     layout_launches = run_layout_paths(torch, dev, models, batch, max_new)
+    entry_launches = run_entry_points(torch, dev)
     train_launches, train_run = run_train_paths(torch, dev)
     profile_runs(torch, greedy, beam_run, train_run)
     by_path = {"greedy": greedy_launches, **beam_launches, **layout_launches,
-               **train_launches}
+               **entry_launches, **train_launches}
     for r in rows:  # launches on the path this row's kernel was ported for
         r["launches"] = by_path[OWN_PATH.get(r["name"], "greedy")][r["name"]]
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}

@@ -1,0 +1,295 @@
+"""Decode / eval CLI: the recipe's stage 12 (decode a Kaldi data dir, score
+WER and CER) on the port.
+
+Usage::
+
+    python -m robustsq_whisper_torch.cli.decode \
+        --config conf/tswhisper/train_..._.yaml \
+        --inference_config conf/tswhisper/decode_asr_whisper_beam1.yaml \
+        --data_dir dump/raw/test_sglspk \
+        --expdir exp/tswhisper --output_dir exp/tswhisper/decode_test
+
+The flags are the JAX package's ``cli.decode`` flags plus ``--device``
+(default ``cuda``; without CUDA the command raises unless ``--device
+cpu``). Weights come from the latest checkpoint under
+``{expdir}/checkpoints`` (or its averaged ``ave`` subdirectory) in the
+port's format (``train/checkpoint.py``); with no checkpoint the model is
+the config's seeded random init. Paths the port does not have yet stop
+with a message naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import sys
+from typing import Any, Dict
+
+import torch
+
+# flags of paths the port does not have yet: (flag, is it set?, ROADMAP item)
+UNSUPPORTED = (
+    ("--model_parallel", lambda a: a.model_parallel > 1,
+     "tensor-parallel serving is ROADMAP A15 (multi-GPU)"),
+    ("--ctc_weight", lambda a: a.ctc_weight > 0,
+     "joint CTC/attention decode is ROADMAP A13 (decode extras)"),
+    ("--timestamps", lambda a: a.timestamps,
+     "timestamp decoding is ROADMAP A13 (decode extras)"),
+    ("--long_audio", lambda a: a.long_audio,
+     "long-audio windows are ROADMAP A13 (decode extras)"),
+    ("--int8_weights", lambda a: a.int8_weights,
+     "W8A8 step weights are ROADMAP A10"),
+    ("--enroll_type", lambda a: a.enroll_type == "embedding",
+     "embedding enrollment is ROADMAP A14"),
+    ("--draft_path", lambda a: bool(a.draft_path),
+     "loading a distilled draft (train/distill.py) is ROADMAP A item 3"),
+)
+
+
+def str2bool(v: str) -> bool:
+    """Strict boolean flag values: true/false/1/0/yes/no/on/off."""
+    lv = v.lower()
+    if lv in ("true", "1", "yes", "on"):
+        return True
+    if lv in ("false", "0", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected a boolean, got {v!r}")
+
+
+def check_supported(parser: argparse.ArgumentParser, args, flags=UNSUPPORTED) -> None:
+    for flag, is_set, why in flags:
+        if is_set(args):
+            parser.error(f"{flag}: {why}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--config", required=True)
+    p.add_argument("--inference_config", default=None)
+    p.add_argument("--data_dir", required=True)
+    p.add_argument("--expdir", default=None)
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--tokenizer_assets", default=None)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--language", default="en")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the hand-written kernels) or cpu (their plain "
+                   "PyTorch versions)")
+    p.add_argument("--use_flash", type=str2bool, default=True,
+                   help="flash kernel for the encoder self-attention")
+    p.add_argument("--flash_tmaj", type=str2bool, default=True,
+                   help="time-major flash self-attention (with --use_flash)")
+    p.add_argument("--use_ave", type=str2bool, default=True,
+                   help="decode from the averaged n-best checkpoint when present")
+    p.add_argument("--cross_kv_bits", type=int, default=8, choices=(4, 8),
+                   help="quantized cross K/V width when quantize_cross_kv is on")
+    p.add_argument("--self_kv_bits", type=int, default=16, choices=(8, 16),
+                   help="self-attention cache width: 16 (dense) or 8 (int8)")
+    p.add_argument("--gelu_approx", type=str2bool, default=False,
+                   help="tanh-approximate GELU in the encoder")
+    p.add_argument("--int8_weights", type=str2bool, default=False)
+    p.add_argument("--data_parallel", type=str2bool, default=True,
+                   help="a no-op on one device")
+    p.add_argument("--long_audio", type=str2bool, default=False)
+    p.add_argument("--chunk_seconds", type=float, default=30.0)
+    p.add_argument("--prefill_quantized", type=str2bool, default=False,
+                   help="quantize the cross K/V before the prefill (implies "
+                   "quantize_cross_kv)")
+    p.add_argument("--enc_chunk", type=int, default=0,
+                   help="encoder sub-batch size (0 = the whole batch)")
+    p.add_argument("--speculative_gamma", type=int, default=0,
+                   help="speculative greedy decode: tokens a draft round "
+                   "proposes (0 = off)")
+    p.add_argument("--draft_layers", type=int, default=4,
+                   help="self-draft depth for --speculative_gamma")
+    p.add_argument("--draft_path", default=None)
+    p.add_argument("--ctc_weight", type=float, default=0.0)
+    p.add_argument("--pre_beam", type=int, default=8)
+    p.add_argument("--maxlenratio", type=float, default=0.0)
+    p.add_argument("--minlenratio", type=float, default=0.0)
+    p.add_argument("--min_new_tokens", type=int, default=0,
+                   help="suppress eot until this many tokens were emitted")
+    p.add_argument("--model_parallel", type=int, default=1)
+    p.add_argument("--timestamps", type=str2bool, default=False)
+    p.add_argument("--enroll_type", default=None, choices=["audio", "embedding"])
+    p.add_argument("--enroll_prefix", default="resnet")
+    p.add_argument("--seed", type=int, default=0)
+    return p
+
+
+def load_exp(args) -> Any:
+    """The experiment config, the inference yaml applied, and the flags
+    that override the encoder's serving knobs."""
+    from ..utils.config import load_experiment, with_inference_config
+
+    exp = with_inference_config(load_experiment(args.config), args.inference_config)
+    return dataclasses.replace(
+        exp, ts=dataclasses.replace(
+            exp.ts,
+            use_flash_attention=bool(args.use_flash),
+            flash_tmaj=bool(args.use_flash) and bool(args.flash_tmaj),
+            gelu_approx=bool(args.gelu_approx),
+        ),
+    )
+
+
+def decode_config(exp, args, **extra):
+    """The experiment's decode config with the flags' values, eot from the
+    model config and the init sequence: an explicit ``decode_conf.
+    init_tokens`` wins (checkpoints trained by ``cli.train`` condition on
+    [sos; text]); otherwise the full Whisper sot sequence when the
+    vocabulary has it, else the bare sos."""
+    from ..tokenizer.whisper_tokenizer import special_tokens_for_vocab
+
+    st = special_tokens_for_vocab(exp.model.vocab_size)
+    if exp.decode_init_tokens_explicit:
+        init = exp.decode.init_tokens
+    elif exp.model.vocab_size >= st.n_vocab:
+        init = st.sot_sequence(args.language, "transcribe", True)
+    else:
+        init = (exp.model.sos,)
+    dcfg = dataclasses.replace(
+        exp.decode,
+        speculative_gamma=max(0, args.speculative_gamma),
+        draft_layers=args.draft_layers,
+        timestamp_begin=st.timestamp_begin,
+        eot=exp.model.eos,
+        init_tokens=init,
+        **extra,
+    )
+    if args.prefill_quantized:  # prefill on the quantized cross K/V
+        dcfg = dataclasses.replace(dcfg, quantize_cross_kv=True, prefill_quantized=True)
+    return dcfg
+
+
+def serving_weights(exp, args, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The ``TSASRModel`` state dict to serve, on the host: the latest
+    checkpoint under ``{expdir}/checkpoints`` (its ``ave`` subdirectory with
+    ``--use_ave`` when that holds one), else the seeded random init."""
+    from ..train.checkpoint import latest_step, restore_serving_variables
+    from ..train.eval import AVE_SUBDIR
+    from .train import build_model
+
+    if args.expdir:
+        ckpt_dir = f"{args.expdir}/checkpoints"
+        ave_dir = f"{ckpt_dir}/{AVE_SUBDIR}"
+        if args.use_ave and latest_step(ave_dir) is not None:
+            ckpt_dir = ave_dir
+            logging.info("using averaged n-best checkpoint %s", ave_dir)
+        if latest_step(ckpt_dir) is not None:
+            sd, step, epoch = restore_serving_variables(ckpt_dir, dtype, exp.train)
+            logging.info("restored step %d (epoch %d, mode %s) from %s",
+                         step, epoch, exp.train.mode, ckpt_dir)
+            return sd
+        logging.warning("no checkpoint under %s: serving the seeded random init", ckpt_dir)
+    return build_model(exp, args.seed, device="cpu").state_dict()
+
+
+def serving_modules(
+    exp, state_dict: Dict[str, torch.Tensor], dtype: torch.dtype, device,
+    cross_kv_bits: int, self_kv_bits: int, flat_self_cache: bool,
+):
+    """``(QFormerTSEncoder, TSDecoder)`` of ``exp`` on ``device``, every
+    floating tensor in ``dtype`` (serving keeps the weights in the compute
+    dtype), loaded from the ``encoder.`` and ``decoder.`` entries of a
+    ``TSASRModel`` state dict."""
+    from ..models import QFormerTSEncoder, TSDecoder
+
+    dims = exp.resolved_dims()
+    with torch.device(device):
+        encoder = QFormerTSEncoder(dims, exp.ts)
+        decoder = TSDecoder(
+            dims.replace(n_vocab=exp.model.vocab_size),
+            startofprev_token=exp.model.startofprev,
+            cross_kv_bits=cross_kv_bits, self_kv_bits=self_kv_bits,
+            flat_self_cache=flat_self_cache,
+        )
+    for prefix, module in (("encoder.", encoder), ("decoder.", decoder)):
+        module.to(device=device, dtype=dtype)
+        module.load_state_dict(
+            {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)},
+            strict=True,
+        )
+        module.eval()
+    return encoder, decoder
+
+
+@dataclasses.dataclass
+class Decoding:
+    """What ``main`` decodes with, before any weights are read."""
+
+    exp: Any
+    args: Any
+    dcfg: Any
+    dataset: Any
+    tokenizer: Any
+    device: torch.device
+    dtype: torch.dtype
+
+    def modules(self, state_dict: Dict[str, torch.Tensor]):
+        spec = self.dcfg.speculative_gamma > 0
+        return serving_modules(
+            self.exp, state_dict, self.dtype, self.device,
+            cross_kv_bits=self.args.cross_kv_bits,
+            self_kv_bits=self.args.self_kv_bits,
+            # speculative decode needs the 5-D cache's per-row writes
+            flat_self_cache=not spec,
+        )
+
+
+def prepare(argv=None) -> Decoding:
+    """Parse ``argv`` and set up the decode: config, decode config, data
+    and tokenizer. Raises without CUDA unless ``--device cpu``."""
+    from .._device import resolve_device
+    from ..data.dataset import KaldiTSDataset
+    from ..tokenizer.whisper_tokenizer import load_tokenizer
+    from .train import compute_dtype
+
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    check_supported(parser, args)
+    device = resolve_device(args.device)
+    exp = load_exp(args)
+    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
+        logging.info("--data_parallel: decoding on one device (multi-GPU is ROADMAP A15)")
+    dcfg = decode_config(
+        exp, args,
+        min_new_tokens=max(0, args.min_new_tokens),
+        pre_beam=max(2, args.pre_beam),
+        maxlenratio=max(0.0, args.maxlenratio),
+        minlenratio=max(0.0, args.minlenratio),
+    )
+    tokenizer = load_tokenizer(args.tokenizer_assets)
+    dataset = KaldiTSDataset(
+        args.data_dir, tokenizer,
+        speech_seconds=exp.speech_seconds, enroll_seconds=exp.enroll_seconds,
+        utt_style=exp.utt_style, seed=args.seed, enroll_type=exp.ts.enroll_type,
+    )
+    return Decoding(exp, args, dcfg, dataset, tokenizer, device, compute_dtype(exp))
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(
+        level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s: %(message)s",
+    )
+    from ..decode.pipeline import decode_dataset
+
+    d = prepare(argv)
+    logging.info("decoding %d utterances on %s", len(d.dataset), d.device)
+    encoder, decoder = d.modules(serving_weights(d.exp, d.args, d.dtype))
+    result = decode_dataset(
+        encoder, decoder, d.dataset, d.tokenizer, d.dcfg,
+        batch_size=d.args.batch_size, output_dir=d.args.output_dir,
+        enc_chunk=d.args.enc_chunk, device=d.device,
+    )
+    logging.info(
+        "decoded %d utts in %.1fs (RTF %.1fx): %s",
+        len(result.hyps), result.wall_seconds, result.rtf,
+        " ".join(f"{k}={v:.4f}" for k, v in sorted(result.metrics.items())),
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,117 @@
+"""Kaldi-dir-backed target-speaker dataset with fixed-shape batching.
+
+Mirrors the JAX package's ``data/dataset.py`` for audio enrollment. Reads a
+data dir containing::
+
+    wav.scp  utt2spk  text  enroll.scp  [spk2enroll.json]
+
+- ``text`` is tokenized with the given tokenizer (ids, not words);
+- lazy ``*utt spk`` enrollment rows resolve to a random same-speaker
+  enrollment utterance, and enrollments longer than ``enroll_seconds``
+  are cropped at a random start;
+- batches are fixed-shape (speech padded or cut to ``speech_seconds``);
+- ``neg_logits`` / ``spk_labels`` come from the utt ids (``collate.py``).
+
+The random draws are the JAX package's, in its order, from one
+``np.random.default_rng(seed)``: the shuffle of ``batches``, then per
+utterance the enrollment pick and the crop start; so a seed picks the same
+enrollments and crops in both packages. Speech is read per file with
+scipy; the JAX package's batched native loader (a host-throughput path)
+comes with the data layer. ``enroll_type="embedding"`` is ROADMAP A14.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Iterator, List
+
+import numpy as np
+
+from . import collate, kaldi_io
+
+
+class KaldiTSDataset:
+    """Target-speaker triplet dataset: (speech, enroll, text) per utt, at
+    the JAX package's defaults for what no decode caller sets: 16 kHz audio,
+    128 text tokens, speaker ids unwrapped, ``spk2enroll.json`` in the dir."""
+
+    sample_rate = 16000
+    text_len = 128
+
+    def __init__(
+        self,
+        data_dir: str,
+        tokenizer,
+        speech_seconds: float = 30.0,
+        enroll_seconds: float = 10.0,
+        utt_style: str = "libri2mix",
+        seed: int = 0,
+        enroll_type: str = "audio",
+    ):
+        if enroll_type == "embedding":
+            raise NotImplementedError("embedding enrollment is ROADMAP A14")
+        if enroll_type != "audio":
+            raise ValueError(f"enroll_type must be audio|embedding, got {enroll_type}")
+        self.data_dir = data_dir
+        self.tokenizer = tokenizer
+        self.speech_samples = int(speech_seconds * self.sample_rate)
+        self.enroll_samples = int(enroll_seconds * self.sample_rate)
+        self.utt_style = utt_style
+        self.rng = np.random.default_rng(seed)
+        self.speaker_to_id: Dict[str, int] = {}
+
+        self.wav = kaldi_io.read_scp(os.path.join(data_dir, "wav.scp"))
+        self.text = kaldi_io.read_scp(os.path.join(data_dir, "text"))
+        enroll_path = os.path.join(data_dir, "enroll.scp")
+        self.enroll = kaldi_io.read_scp(enroll_path) if os.path.exists(enroll_path) else {}
+        s2e = os.path.join(data_dir, "spk2enroll.json")
+        self.spk2enroll = kaldi_io.read_spk2enroll(s2e) if os.path.exists(s2e) else None
+        self.utt_ids: List[str] = sorted(set(self.wav) & set(self.text))
+
+    def __len__(self) -> int:
+        return len(self.utt_ids)
+
+    def _load_audio(self, path: str) -> np.ndarray:
+        audio, sr = kaldi_io.read_wav(path)
+        if sr != self.sample_rate:
+            raise ValueError(f"{path}: sample rate {sr} != {self.sample_rate}")
+        return audio
+
+    def _enroll_audio(self, utt_id: str) -> np.ndarray:
+        row = self.enroll.get(utt_id)
+        if row is None:  # no enrollment: the mixture itself
+            return self._load_audio(self.wav[utt_id].split()[0])
+        path = kaldi_io.resolve_enrollment(row, self.spk2enroll, self.rng, exclude_utt=utt_id)
+        audio = self._load_audio(path)
+        if len(audio) > self.enroll_samples:  # random crop
+            start = int(self.rng.integers(len(audio) - self.enroll_samples + 1))
+            audio = audio[start : start + self.enroll_samples]
+        return audio
+
+    def batches(
+        self, batch_size: int, shuffle: bool = True, drop_last: bool = True
+    ) -> Iterator[Dict[str, np.ndarray]]:
+        order = np.arange(len(self.utt_ids))
+        if shuffle:
+            self.rng.shuffle(order)
+        for i in range(0, len(order), batch_size):
+            idx = order[i : i + batch_size]
+            if len(idx) < batch_size:
+                if drop_last:
+                    break
+                # a short last batch wraps to the first utterances
+                idx = np.concatenate([idx, order[: batch_size - len(idx)]])
+            utts = [self.utt_ids[j] for j in idx]
+            speech = [self._load_audio(self.wav[u].split()[0]) for u in utts]
+            enroll = [self._enroll_audio(u) for u in utts]
+            texts = [np.asarray(self.tokenizer.encode(self.text[u]), np.int32) for u in utts]
+            batch = collate.collate_batch(
+                utts, speech, enroll, texts,
+                speech_samples=self.speech_samples,
+                enroll_samples=self.enroll_samples,
+                text_len=self.text_len,
+                style=self.utt_style,
+                speaker_to_id=self.speaker_to_id,
+            )
+            batch["utt_ids"] = utts  # host-only metadata
+            yield batch

@@ -1,27 +1,52 @@
-"""The serving program pair (encode, run) and the sub-batched encode.
+"""The serving program pair (encode, run), the sub-batched encode, and the
+decode of a Kaldi data dir with WER / CER scoring.
 
 Mirrors the single-device Qformer case of the JAX package's
-``decode/pipeline.py::build_decode_fns``: greedy or beam search as
+``decode/pipeline.py``. ``build_decode_fns``: greedy or beam search as
 ``DecodeConfig.beam_size`` says (``run`` returns the best beam of each
 utterance), or speculative greedy decode when ``speculative_gamma > 0``
 (``run`` then also returns the draft-acceptance counters, and ``draft``
-may give a separate draft decoder). Mesh serving (data or tensor
-parallel), joint CTC and embedding enrollment are later slices and raise
-``NotImplementedError``. The Kaldi data-dir batch job (``decode_dataset``)
-comes with ROADMAP A8's bench.
+may give a separate draft decoder). ``decode_dataset`` runs a
+``KaldiTSDataset`` through them batch by batch and ``score_and_write``
+writes the ESPnet-style ``text`` (hypotheses) and ``score.txt``. Mesh
+serving (data or tensor parallel), joint CTC and embedding enrollment are
+later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+import dataclasses
+import logging
+import os
+import time
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..audio.frontend import log_mel_spectrogram, pcm16_to_float, to_pcm16
+from ..data import kaldi_io
 from ..models.ts_decoder import TSDecoder
 from ..models.ts_encoder import QFormerTSEncoder
-from .search import DecodeConfig, build_beam_decoder
+from .scorer import cer, wer
+from .search import DecodeConfig, build_beam_decoder, strip_eot
 from .speculative import build_speculative_decoder
+
+logger = logging.getLogger("robustsq_whisper_torch.decode")
+
+
+@dataclasses.dataclass
+class DecodeResult:
+    hyps: Dict[str, str]
+    refs: Dict[str, str]
+    metrics: Dict[str, float]
+    audio_seconds: float
+    wall_seconds: float
+
+    @property
+    def rtf(self) -> float:
+        return self.audio_seconds / max(self.wall_seconds, 1e-9)
 
 
 def chunked_encode(enc_fn, feats, feats_lens, efeats, efeats_lens, chunk):
@@ -76,3 +101,122 @@ def build_decode_fns(
         return encoder(mel.to(dev), flens.to(dev), emel.to(dev), elens.to(dev))
 
     return encode, run
+
+
+def decode_dataset(
+    encoder: QFormerTSEncoder,
+    decoder: TSDecoder,
+    dataset: Any,  # KaldiTSDataset
+    tokenizer: Any,
+    dcfg: DecodeConfig,
+    batch_size: int = 8,
+    output_dir: Optional[str] = None,
+    enc_chunk: int = 0,
+    device="cuda",
+) -> DecodeResult:
+    """Decode every utterance of ``dataset`` and score it against its
+    ``text``.
+
+    The loop keeps the JAX package's order: batch i is encoded and decoded,
+    then the host detokenizes batch i-1 (the only place tokens move to the
+    host) and reads the audio of batch i+1. It does not keep its overlap:
+    ``run`` syncs with the host at every decode step (ROADMAP D5), so the
+    device has finished batch i before the host goes on."""
+    dev = resolve_device(device)
+    encode, run = build_decode_fns(encoder, decoder, dcfg, device=dev)
+    if enc_chunk < 0:
+        raise ValueError(f"enc_chunk must be >= 0, got {enc_chunk}")
+
+    hyps: Dict[str, str] = {}
+    refs: Dict[str, str] = {}
+    spec_totals = np.zeros(3, np.int64)  # chunks, accepted, emitted
+    audio_sec = 0.0
+    t0 = time.time()
+
+    def consume(pending) -> None:
+        """Host half of one batch: fetch tokens, detokenize, look up refs."""
+        nonlocal audio_sec
+        utts, speech_lens, tokens, stats = pending
+        tokens = tokens.cpu().numpy()
+        if stats is not None:
+            stats = {k: v.cpu().numpy() for k, v in stats.items()}
+        for i, utt in enumerate(utts):
+            if utt in hyps:  # drop_last=False wraps; skip duplicates
+                continue
+            ids = strip_eot(tokens[i : i + 1], dcfg.eot)[0]
+            hyps[utt] = tokenizer.decode(ids).strip()
+            refs[utt] = dataset.text.get(utt, "")
+            audio_sec += float(speech_lens[i]) / dataset.sample_rate
+            if stats is not None:
+                spec_totals[:] += [
+                    stats["chunks"][i], stats["accepted"][i], stats["emitted"][i],
+                ]
+
+    n_mels = encoder.dims.n_mels
+
+    def mel(wave: np.ndarray, lens: np.ndarray):
+        # int16 on the wire: half the host-to-device bytes, exact for WAV audio
+        x = pcm16_to_float(torch.from_numpy(to_pcm16(wave)).to(dev))
+        return log_mel_spectrogram(x, torch.from_numpy(lens).to(dev), n_mels=n_mels)
+
+    pending = None
+    with torch.inference_mode():
+        for batch in dataset.batches(batch_size, shuffle=False, drop_last=False):
+            feats, feats_lens = mel(batch["speech"], batch["speech_lens"])
+            efeats, efeats_lens = mel(batch["enroll"], batch["enroll_lens"])
+            memory, spk_prompt = chunked_encode(
+                encode, feats, feats_lens, efeats, efeats_lens, enc_chunk
+            )
+            res = run(memory, spk_prompt)
+            tokens, stats = res[0], (res[2] if len(res) == 3 else None)
+            if pending is not None:
+                consume(pending)
+            pending = (batch["utt_ids"], batch["speech_lens"], tokens, stats)
+        if pending is not None:
+            consume(pending)
+    wall = time.time() - t0
+
+    extra: Dict[str, float] = {}
+    if dcfg.speculative_gamma > 0:
+        # reported whenever the speculative path ran, even with 0 chunks
+        chunks, accepted, emitted = (int(x) for x in spec_totals)
+        extra = {
+            "spec_acceptance_rate": round(
+                accepted / max(chunks * dcfg.speculative_gamma, 1), 4
+            ),
+            "spec_tokens_per_chunk": round(emitted / max(chunks, 1), 3),
+            "spec_chunks": float(chunks),
+        }
+        logger.info(
+            "speculative decode: %.1f%% draft acceptance, %.2f tokens/chunk "
+            "(gamma=%d draft_layers=%d)",
+            100 * extra["spec_acceptance_rate"], extra["spec_tokens_per_chunk"],
+            dcfg.speculative_gamma, dcfg.draft_layers,
+        )
+    return score_and_write(hyps, refs, audio_sec, wall, output_dir, extra)
+
+
+def score_and_write(
+    hyps: Dict[str, str],
+    refs: Dict[str, str],
+    audio_sec: float,
+    wall: float,
+    output_dir: Optional[str] = None,
+    extra_metrics: Optional[Dict[str, float]] = None,
+) -> DecodeResult:
+    """WER/CER/RTF metrics and the ESPnet-style ``text`` / ``score.txt``."""
+    pairs = [(refs[u], hyps[u]) for u in hyps if refs.get(u)]
+    metrics: Dict[str, float] = dict(extra_metrics or {})
+    if pairs:
+        r, h = zip(*pairs)
+        metrics.update(wer(list(r), list(h)))
+        metrics.update(cer(list(r), list(h)))
+    metrics["rtf"] = audio_sec / max(wall, 1e-9)
+
+    if output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+        kaldi_io.write_scp(os.path.join(output_dir, "text"), hyps)
+        with open(os.path.join(output_dir, "score.txt"), "w") as f:
+            for k, v in sorted(metrics.items()):
+                f.write(f"{k} {v}\n")
+    return DecodeResult(hyps, refs, metrics, audio_sec, wall)

@@ -28,9 +28,15 @@ from .whisper.modules import AudioEncoder, Linear
 class TSEncoderConfig:
     """The Qformer-path knobs of the JAX package's TSEncoderConfig (same
     names and defaults). ``enroll_type="embedding"`` (ROADMAP A14) and
-    ``sequence_parallel=True`` (ROADMAP A15) raise."""
+    ``sequence_parallel=True`` (ROADMAP A15) raise; the five embedding-
+    enrollment knobs after ``enroll_type`` are read by that encoder only."""
 
     enroll_type: str = "audio"
+    enroll_size: int = 256
+    adapter_method: str = "cat"  # cat | additive | film | cln
+    adapter_normalize: bool = True
+    adapter_layer: int = 1
+    modulate_bias: bool = False
     num_query_tokens: int = 16
     num_hidden_layers: int = 2
     use_spk_prompt: bool = True

@@ -66,6 +66,8 @@ class TranscriptionEngine:
         # next batch can stage while the device runs the current one
         self._lock = threading.Lock()
         self._stage_lock = threading.Lock()
+        # True once a batch has run: the kernels are built at first use
+        self.compiled = False
 
     # ---- audio shaping ----
 
@@ -127,6 +129,7 @@ class TranscriptionEngine:
                 self.encode, feats, flens, efeats, eflens, self.cfg.enc_chunk
             )
             tokens = self.run(memory, spk_prompt)[0].cpu().numpy()
+            self.compiled = True
         rows = strip_eot(tokens[:n_items], self.dcfg.eot)
         return [self.tokenizer.decode(r).strip() for r in rows]
 
