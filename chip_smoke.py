@@ -60,6 +60,22 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    seeded and nonzero, and the checkpoint's serving restore must equal
    ``merge_lora`` of the in-memory weights tensor for tensor. The decode walls and RTFs and the request latencies are
    printed with the card's name and power limit;
+4c. the training entry point at Whisper-medium: train and valid dirs of 24
+   and 8 such pairs, a synthetic OpenAI-format medium.en ``.pt`` (fp16,
+   one token short of the config's vocabulary) and the medium lora config
+   with 32 new tokens and the cross K/V quantized (to int8: the
+   cross kernel's int8 layout, as no flag asks for 4 bits); ``cli.train.main``
+   warm-starts from the file and trains 2 epochs of 3 steps at batch 8
+   with the validation pass, the valid WER and n-best 2: the frozen
+   backbone must be the file's after the bf16 cast (the added token row
+   ``adapt_vocab``'s), ``ave`` the mean of the two n-best checkpoints'
+   masters and factors, every batch read by the native reader and every
+   logged stat finite; a second ``main`` resumes to epoch 3 (steps 7 to
+   9), and ``cli.decode --use_ave`` must give ``decode_dataset``'s
+   hypotheses over that mean, token for token. Prints the steps/s and
+   audio-s per GPU-s through the CLI (beside the in-memory step's, after
+   phase 5), the validation, valid-WER, checkpoint save, restore and
+   averaging seconds, the peak memory and the launches;
 5. training: the three flash-attention training kernels (forward, dQ,
    dK/dV) against their plain versions at the medium training shape
    (batch 8 x 16 heads, T = 1500 + 16, bf16) and with a mask at a smaller
@@ -72,7 +88,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``full`` (bf16 first moment), the JAX bench's training settings: a
    warm-up step and three timed steps each, every step with the flash
    forward launched 48 times and each backward kernel 24 times (24 layers,
-   recomputed in the backward);
+   recomputed in the backward), and the host syncs of one more step
+   (``torch.cuda.set_sync_debug_mode``) by source line;
 6. last, the profiler reads the device's busy share of the encode, the
    greedy run, both beam runs and one full-mode training step, and the
    device time of the self-cache reads in each.
@@ -1090,9 +1107,31 @@ def train_batch(torch, dev, b: int, vocab: int):
     }
 
 
+def host_syncs(torch, fn):
+    """The host syncs ``fn`` makes with the card, by
+    ``torch.cuda.set_sync_debug_mode``: {python file:line: count}."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
 def run_train_paths(torch, dev):
     """Phase 5c: make_train_step at Whisper-medium, lora then full. Returns
-    ({path: launches of one step}, a profiled-step closure)."""
+    ({path: launches of one step}, a profiled-step closure, {path: audio-s
+    per GPU-s at the fastest step})."""
     from robustsq_whisper_torch.init import init_params
     from robustsq_whisper_torch.models import (
         TSASRModel, TSEncoderConfig, TSModelConfig, whisper_dims,
@@ -1110,7 +1149,7 @@ def run_train_paths(torch, dev):
     log(f"medium training model: {sum(p.numel() for p in model.parameters())} "
         f"parameters, seeded init {time.perf_counter() - t0:.1f} s")
     counters = launch_counters()
-    launches, profiled = {}, None
+    launches, rates, profiled = {}, {}, None
     for path, (mode, mu) in TRAIN_MODES.items():
         cfg = TrainConfig(mode=mode, optim=OptimConfig(moment_dtype=mu))
         b = TRAIN_B
@@ -1146,12 +1185,15 @@ def run_train_paths(torch, dev):
             if wrong:
                 raise AssertionError(f"{path}: launches per step {wrong}, want {TRAIN_KERNELS}")
         launches[path] = counts
+        rates[path] = b * 30 / min(times)
+        syncs = host_syncs(torch, lambda: step(state, batch, gen, 0))
         n_train = sum(t.numel() for t in state.trainables)
         log(f"{path} (batch {b}, moments {mu}, {n_train} trainable): step ms "
             f"{[round(x * 1e3, 1) for x in times]}, {b * 30 / min(times):.2f} audio-s per "
             f"GPU-s at the fastest, peak memory "
             f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches per step "
-            f"{ {n: counts[n] for n in TRAIN_KERNELS} }; stats {losses}")
+            f"{ {n: counts[n] for n in TRAIN_KERNELS} }; stats {losses}; host syncs in one "
+            f"step {syncs}")
         if not all(np.isfinite(list(x.values())).all() for x in losses):
             raise AssertionError(f"{path}: non-finite loss or stats")
         if mode == "full":
@@ -1159,7 +1201,7 @@ def run_train_paths(torch, dev):
         else:
             del state, step, batch
             torch.cuda.empty_cache()
-    return launches, profiled
+    return launches, profiled, rates
 
 
 def synthetic_pairs(n: int, seed: int):
@@ -1710,6 +1752,319 @@ def run_entry_points(torch, dev):
     return launches
 
 
+TRAIN_ENTRY_KERNELS = {  # path: kernels it must launch
+    "cli.train": ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                  "flash_attention_tmaj", "decode_cross_attention", "decode_self_attention"),
+    "cli.decode --use_ave": GREEDY_KERNELS,
+}
+
+
+# OpenAI whisper names -> the port's ``TSASRModel`` names, written here
+# from the two layouts and not from ``models/whisper/load.py``, so that a
+# fault of the loader's maps shows: a name keeps its path below the Whisper
+# submodule but for the MLP's two linears
+OPENAI_PREFIX = {"encoder.": "encoder.encoder.", "decoder.": "decoder.decoder."}
+OPENAI_RENAME = {".mlp.0.": ".mlp_fc1.", ".mlp.2.": ".mlp_fc2."}
+OPENAI_COMPUTED = ("encoder.positional_embedding",)  # a sinusoid buffer of the port
+
+
+def openai_to_port(file_sd):
+    """{port name: f32 tensor} of an OpenAI whisper state dict."""
+    out = {}
+    for name, t in file_sd.items():
+        if name in OPENAI_COMPUTED:
+            continue
+        head = next(p for p in OPENAI_PREFIX if name.startswith(p))
+        port = OPENAI_PREFIX[head] + name[len(head):]
+        for a, b in OPENAI_RENAME.items():
+            port = port.replace(a, b)
+        out[port] = t.float()
+    return out
+
+
+def write_openai_pt(torch, path: str, dims, dev):
+    """A synthetic OpenAI whisper ``.pt`` of ``dims``: the ``whisper.load_model``
+    key layout and ``dims`` dict, fp16 weights drawn on the card from a seed
+    (linear and conv weights N(0, 1/fan_in), embeddings N(0, 1/width), norms
+    near 1, biases near 0)."""
+    g = torch.Generator(dev).manual_seed(3)
+    sd = {}
+
+    def w(name, *shape, std=None, mean=0.0):
+        if std is None:
+            std = (shape[1] * (shape[2] if len(shape) == 3 else 1)) ** -0.5
+        t = torch.randn(shape, generator=g, device=dev) * std + mean
+        sd[name] = t.half().cpu()
+
+    def lin(name, n_out, n_in, bias=True):
+        w(f"{name}.weight", n_out, n_in)
+        if bias:
+            w(f"{name}.bias", n_out, std=0.01)
+
+    def ln(name, n):
+        w(f"{name}.weight", n, std=0.01, mean=1.0)
+        w(f"{name}.bias", n, std=0.01)
+
+    def block(p, n, cross):
+        for attn in ("attn", "cross_attn") if cross else ("attn",):
+            for m in ("query", "value", "out"):
+                lin(f"{p}.{attn}.{m}", n, n)
+            lin(f"{p}.{attn}.key", n, n, bias=False)
+            ln(f"{p}.{attn}_ln", n)
+        lin(f"{p}.mlp.0", 4 * n, n)
+        lin(f"{p}.mlp.2", n, 4 * n)
+        ln(f"{p}.mlp_ln", n)
+
+    d, td = dims.n_audio_state, dims.n_text_state
+    w("encoder.conv1.weight", d, dims.n_mels, 3)
+    w("encoder.conv1.bias", d, std=0.01)
+    w("encoder.conv2.weight", d, d, 3)
+    w("encoder.conv2.bias", d, std=0.01)
+    w("encoder.positional_embedding", dims.n_audio_ctx, d, std=0.02)
+    for i in range(dims.n_audio_layer):
+        block(f"encoder.blocks.{i}", d, cross=False)
+    ln("encoder.ln_post", d)
+    w("decoder.token_embedding.weight", dims.n_vocab, td, std=td ** -0.5)
+    w("decoder.positional_embedding", dims.n_text_ctx, td, std=0.02)
+    for i in range(dims.n_text_layer):
+        block(f"decoder.blocks.{i}", td, cross=True)
+    ln("decoder.ln", td)
+    torch.save({"dims": dataclasses.asdict(dims), "model_state_dict": sd}, path)
+    return sd
+
+
+def averaged_payload(torch, ckpt_dir: str, steps):
+    """The mean of the checkpoints at ``steps``, computed here: each f32
+    master and LoRA factor in float64 and cast back, each parameter with a
+    master that mean in its dtype, every other parameter (frozen: the same
+    in every checkpoint, checked) as stored. Returns (params, masters by
+    name, lora)."""
+    from robustsq_whisper_torch.train.checkpoint import read_payload
+
+    raws = [read_payload(ckpt_dir, s)[0] for s in sorted(steps)]
+    names = raws[0]["opt"]["names"]
+
+    def mean(xs):
+        return (sum(x.double() for x in xs) / len(xs)).float()
+
+    masters = {n: mean([r["opt"]["masters"][i] for r in raws])
+               for i, n in enumerate(names) if raws[0]["opt"]["masters"][i] is not None}
+    params = {}
+    for n, p in raws[0]["params"].items():
+        if n in masters:
+            params[n] = masters[n].to(p.dtype)
+        elif n in names:  # an f32 trainable parameter: its own master
+            params[n] = mean([r["params"][n] for r in raws])
+        else:
+            if not all(torch.equal(r["params"][n], p) for r in raws[1:]):
+                raise AssertionError(f"the frozen {n} changed between checkpoints")
+            params[n] = p
+    lora = {n: [mean([r["lora"][n][k] for r in raws]) for k in (0, 1)] for n in raws[0]["lora"]}
+    return params, masters, lora, raws[0]["buffers"]
+
+
+def check_average(torch, ckpt_dir: str, steps):
+    """The ``ave`` checkpoint holds ``averaged_payload``'s masters, factors
+    and parameters, tensor for tensor; returns that mean."""
+    from robustsq_whisper_torch.train.checkpoint import read_payload
+    from robustsq_whisper_torch.train.eval import AVE_SUBDIR
+
+    params, masters, lora, buffers = averaged_payload(torch, ckpt_dir, steps)
+    ave, ave_step = read_payload(os.path.join(ckpt_dir, AVE_SUBDIR))
+    names = ave["opt"]["names"]
+    got_masters = {names[i]: m for i, m in enumerate(ave["opt"]["masters"]) if m is not None}
+    differ = [n for n in params if not torch.equal(ave["params"][n], params[n])]
+    differ += [n for n in masters if not torch.equal(got_masters[n], masters[n])]
+    differ += [n for n in lora if not all(torch.equal(ave["lora"][n][k], lora[n][k])
+                                          for k in (0, 1))]
+    if ave_step != len(steps) or differ or ave["params"].keys() != params.keys():
+        raise AssertionError(f"the ave checkpoint (step {ave_step}) is not the mean of steps "
+                             f"{steps}: {differ[:4]}")
+    return params, lora, buffers
+
+
+def run_train_entry(torch, dev):
+    """Phase 4c: the training entry point at Whisper-medium. A train dir of
+    24 and a valid dir of 8 synthetic (30 s, 10 s) WAV pairs, a synthetic
+    OpenAI-format medium.en ``.pt`` (fp16, 51864 tokens: the medium lora
+    config's 51865 adds one row) and a copy of that config capping
+    ``max_new_tokens`` at 32 with the cross K/V quantized, to int8 (the
+    cross kernel's int8 layout: ``TSDecoder``'s and ``cli.decode``'s
+    default width, which nothing here changes). ``cli.train.main``
+    warm-starts from the file and trains 2 epochs of 3 steps at batch 8
+    with the validation pass, the valid WER on 8 utterances and n-best 2;
+    the frozen backbone must be the file's after the bf16 cast (the added
+    row ``adapt_vocab``'s, drawn again here), the ``ave`` checkpoint the
+    mean of the n-best checkpoints' masters and factors, every batch read
+    by the native reader, every logged stat finite. A second ``main`` with
+    3 epochs resumes at step 6 and ends at step 9; then ``cli.decode
+    --use_ave`` decodes the valid dir, token for token as
+    ``decode_dataset`` over the mean computed here. Returns ({path:
+    launches}, audio-s trained per GPU-s)."""
+    import shutil
+    import tempfile
+
+    from robustsq_whisper_torch.cli import decode as cli_decode
+    from robustsq_whisper_torch.cli import train as cli_train
+    from robustsq_whisper_torch.data import dataset as data_dataset
+    from robustsq_whisper_torch.decode.pipeline import decode_dataset
+    from robustsq_whisper_torch.models import whisper_dims
+    from robustsq_whisper_torch.tokenizer import whisper_tokenizer
+    from robustsq_whisper_torch.train.lora import merge_lora
+    from robustsq_whisper_torch.utils.config import load_experiment
+
+    root = tempfile.mkdtemp(prefix="train_entry_")
+    load_tokenizer = whisper_tokenizer.load_tokenizer
+    whisper_tokenizer.load_tokenizer = lambda assets: TokenIds(load_tokenizer(assets))
+    launches, report = {}, {}
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        train_dir = write_data_dir(os.path.join(root, "train"), 24)[0]
+        valid_dir = write_data_dir(os.path.join(root, "valid"), 8)[0]
+        config = os.path.join(root, "lora.yaml")
+        with open(ENTRY_CONFIG) as f, open(config, "w") as g:
+            g.write(f.read() + "decode_conf:\n  max_new_tokens: 32\n  quantize_cross_kv: true\n")
+        exp = load_experiment(config)
+        pt = os.path.join(root, "medium.en.pt")
+        file_dims = whisper_dims("medium").replace(n_vocab=exp.model.vocab_size - 1)
+        file_sd = write_openai_pt(torch, pt, file_dims, dev)
+        report["setup_s"] = time.perf_counter() - t0
+        expdir = os.path.join(root, "exp")
+        ckpt = os.path.join(expdir, "checkpoints")
+        argv = ["--config", config, "--train_dir", train_dir, "--valid_dir", valid_dir,
+                "--expdir", expdir, "--pretrained", pt, "--batch_size", "8", "--nbest", "2",
+                "--valid_wer_utts", "8", "--ckpt_every_steps", "0", "--log_every", "1",
+                "--tokenizer_assets", ENTRY_RANKS, "--device", str(dev)]
+        records = []
+
+        def hook(step, values):
+            records.append((step, dict(values)))
+
+        data_dataset.BATCH_READS.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        rc, wall, counts = counted(
+            torch, lambda: cli_train.main(argv + ["--num_epochs", "2"], metrics_hook=hook))
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        launches["cli.train"] = counts
+        seconds = records[-1][1]
+        steps = [s for s, v in records if "loss" in v]
+        valid = [v for _, v in records if "valid.acc" in v]
+        reads = dict(data_dataset.BATCH_READS)
+        # 1 batch read before the model is built, then per epoch 3 training
+        # batches, the validation pass and the valid-WER pass (8 each)
+        if rc != 0 or steps != [1, 2, 3, 4, 5, 6] or len(valid) != 2:
+            raise AssertionError(f"cli.train: rc {rc}, steps {steps}, {len(valid)} valid passes")
+        if reads != {"native": 11}:
+            raise AssertionError(f"cli.train: batches read {reads}, want 11 by the native reader")
+        bad = [(s, k) for s, v in records for k, x in v.items() if not np.isfinite(x)]
+        if bad or not all("valid.wer" in v for v in valid):
+            raise AssertionError(f"cli.train: non-finite stats {bad[:4]} or no valid WER")
+        rate = 6 * 8 * 30 / seconds["seconds.train"]
+        report["cli.train"] = {
+            "main_s": wall, "steps_per_s": 6 / seconds["seconds.train"],
+            "audio_s_per_gpu_s": rate, "peak_gib": peak,
+            **{k.split(".")[1] + "_s": v for k, v in seconds.items()},
+            "valid": {k: round(v, 4) for k, v in valid[-1].items()},
+        }
+        log(f"cli.train lora medium: rc {rc}, main {wall:.1f} s, 6 steps at batch 8 in "
+            f"{seconds['seconds.train']:.2f} s of training wall ({6 / seconds['seconds.train']:.2f} "
+            f"steps/s, {rate:.2f} audio-s per GPU-s), validation {seconds['seconds.valid']:.2f} s, "
+            f"valid WER {seconds['seconds.valid_wer']:.2f} s, checkpoint saves "
+            f"{seconds['seconds.save']:.2f} s, averaging {seconds['seconds.average']:.2f} s, peak "
+            f"memory {peak:.2f} GiB; batches read {reads}; launches {counts}")
+        missing = [n for n in TRAIN_ENTRY_KERNELS["cli.train"] if counts[n] == 0]
+        if missing:
+            raise AssertionError(f"cli.train: kernels not launched: {missing}")
+
+        with open(os.path.join(ckpt, "nbest.json")) as f:
+            nbest = [e["step"] for e in json.load(f)["entries"]]
+        if sorted(nbest) != [3, 6]:
+            raise AssertionError(f"cli.train: nbest.json names {nbest}, want steps 3 and 6")
+        t0 = time.perf_counter()
+        params, _, _ = check_average(torch, ckpt, nbest)
+        # the warm start: the frozen Whisper weights are the file's, cast,
+        # each found by its OpenAI name through this script's own table
+        want = openai_to_port(file_sd)
+        emb = want["decoder.decoder.token_embedding.weight"].numpy()
+        row = np.random.default_rng(0).normal(float(emb.mean()), float(emb.std()), (1, emb.shape[1]))
+        want["decoder.decoder.token_embedding.weight"] = torch.cat(
+            [want["decoder.decoder.token_embedding.weight"], torch.from_numpy(row.astype(np.float32))])
+        whisper = {k for k in params if k.startswith(("encoder.encoder.", "decoder.decoder."))}
+        if want.keys() != whisper:
+            raise AssertionError(f"cli.train --pretrained: the file's names map onto "
+                                 f"{sorted(want.keys() ^ whisper)[:4]} that the model lacks or "
+                                 f"does not take from it")
+        differ = [k for k, v in want.items() if not torch.equal(params[k], v.float().to(params[k].dtype))]
+        if differ:
+            raise AssertionError(f"cli.train --pretrained: {len(differ)} weights differ from the "
+                                 f"file's: {differ[:4]}")
+        log(f"cli.train: nbest.json names steps {nbest}; the ave checkpoint is their mean "
+            f"(masters, factors and parameters); the {len(want)} Whisper weights are the file's "
+            f"after the cast, the added token row adapt_vocab's ({time.perf_counter() - t0:.1f} s "
+            f"of checks)")
+        del params
+
+        records.clear()
+        rc, wall, _ = counted(
+            torch, lambda: cli_train.main(argv + ["--num_epochs", "3"], metrics_hook=hook))
+        steps = [s for s, v in records if "loss" in v]
+        if rc != 0 or steps != [7, 8, 9]:
+            raise AssertionError(f"cli.train resume: rc {rc}, steps {steps}, want 7 to 9")
+        seconds = records[-1][1]
+        report["cli.train resume"] = {"main_s": wall, "restore_s": seconds["seconds.restore"],
+                                      "save_s": seconds["seconds.save"],
+                                      "average_s": seconds["seconds.average"]}
+        log(f"cli.train resume: rc {rc}, main {wall:.1f} s, restore "
+            f"{seconds['seconds.restore']:.2f} s, steps {steps}")
+        with open(os.path.join(ckpt, "nbest.json")) as f:
+            nbest = [e["step"] for e in json.load(f)["entries"]]
+        params, lora, buffers = check_average(torch, ckpt, nbest)
+
+        # the serving weights cli.decode makes of the mean: every f32
+        # parameter and factor cast to bf16, the factors merged
+        def bf16(t):
+            return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
+
+        memory_sd = merge_lora({n: bf16(p) for n, p in params.items()},
+                               {n: (bf16(a), bf16(b)) for n, (a, b) in lora.items()},
+                               exp.train.lora)
+        memory_sd.update(buffers)
+        out = os.path.join(root, "decode_ave")
+        dargv = ["--config", config, "--data_dir", valid_dir, "--expdir", expdir,
+                 "--output_dir", out, "--batch_size", "8", "--tokenizer_assets", ENTRY_RANKS,
+                 "--device", str(dev)]
+        rc, wall, counts = counted(torch, lambda: cli_decode.main(dargv))
+        launches["cli.decode --use_ave"] = counts
+        d = cli_decode.prepare(dargv)
+        enc, dec = d.modules(memory_sd)
+        decode_dataset(enc, dec, d.dataset, d.tokenizer, d.dcfg, batch_size=8,
+                       output_dir=out + "_in_memory", device=dev)
+        del enc, dec, memory_sd, params
+        with open(os.path.join(out, "text"), "rb") as f, \
+                open(os.path.join(out + "_in_memory", "text"), "rb") as g:
+            text, ref = f.read(), g.read()
+        missing = [n for n in TRAIN_ENTRY_KERNELS["cli.decode --use_ave"] if counts[n] == 0]
+        if rc != 0 or text != ref or text.count(b"\n") != 8 or missing:
+            raise AssertionError(f"cli.decode --use_ave: rc {rc}, kernels not launched "
+                                 f"{missing}, hypotheses equal the in-memory mean's: {text == ref}")
+        # each line is "utt id tok tok ...": the texts are token ids
+        n_tokens = sum(len(line.split()) - 1 for line in text.decode().splitlines())
+        if n_tokens == 0:
+            raise AssertionError("cli.decode --use_ave: every hypothesis is empty, so the "
+                                 "comparison held no tokens")
+        report["cli.decode --use_ave"] = {"main_s": wall, "tokens_compared": n_tokens}
+        log(f"cli.decode --use_ave: rc {rc}, main {wall:.2f} s, 8 hypotheses ({n_tokens} "
+            f"tokens) equal decode_dataset's over the mean of steps {nbest}; launches {counts}")
+        torch.cuda.empty_cache()
+    finally:
+        whisper_tokenizer.load_tokenizer = load_tokenizer
+        shutil.rmtree(root, ignore_errors=True)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"training entry point on {gpu_info()}: {json.dumps(report)}")
+    return launches, rate
+
+
 # the self-cache read kernels' names: the shared read's, and those of the
 # two kernels it replaced (to profile an older tree)
 SELF_KERNELS = ("self_cache_read_kernel", "decode_self_kernel", "settled_kernel")
@@ -1773,10 +2128,14 @@ def main() -> int:
     beam_launches, beam_run = run_beam_paths(torch, dev, models, batch, max_new)
     layout_launches = run_layout_paths(torch, dev, models, batch, max_new)
     entry_launches = run_entry_points(torch, dev)
-    train_launches, train_run = run_train_paths(torch, dev)
+    train_entry_launches, cli_rate = run_train_entry(torch, dev)
+    train_launches, train_run, train_rates = run_train_paths(torch, dev)
+    log(f"training audio-s per GPU-s on {gpu_info()}: cli.train (lora, batch 8, the loop's "
+        f"training wall) {cli_rate:.2f}, make_train_step in memory (lora, fastest step) "
+        f"{train_rates['train lora']:.2f}")
     profile_runs(torch, greedy, beam_run, train_run)
     by_path = {"greedy": greedy_launches, **beam_launches, **layout_launches,
-               **entry_launches, **train_launches}
+               **entry_launches, **train_entry_launches, **train_launches}
     for r in rows:  # launches on the path this row's kernel was ported for
         r["launches"] = by_path[OWN_PATH.get(r["name"], "greedy")][r["name"]]
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}

@@ -186,35 +186,6 @@ def serving_weights(exp, args, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     return build_model(exp, args.seed, device="cpu").state_dict()
 
 
-def serving_modules(
-    exp, state_dict: Dict[str, torch.Tensor], dtype: torch.dtype, device,
-    cross_kv_bits: int, self_kv_bits: int, flat_self_cache: bool,
-):
-    """``(QFormerTSEncoder, TSDecoder)`` of ``exp`` on ``device``, every
-    floating tensor in ``dtype`` (serving keeps the weights in the compute
-    dtype), loaded from the ``encoder.`` and ``decoder.`` entries of a
-    ``TSASRModel`` state dict."""
-    from ..models import QFormerTSEncoder, TSDecoder
-
-    dims = exp.resolved_dims()
-    with torch.device(device):
-        encoder = QFormerTSEncoder(dims, exp.ts)
-        decoder = TSDecoder(
-            dims.replace(n_vocab=exp.model.vocab_size),
-            startofprev_token=exp.model.startofprev,
-            cross_kv_bits=cross_kv_bits, self_kv_bits=self_kv_bits,
-            flat_self_cache=flat_self_cache,
-        )
-    for prefix, module in (("encoder.", encoder), ("decoder.", decoder)):
-        module.to(device=device, dtype=dtype)
-        module.load_state_dict(
-            {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)},
-            strict=True,
-        )
-        module.eval()
-    return encoder, decoder
-
-
 @dataclasses.dataclass
 class Decoding:
     """What ``main`` decodes with, before any weights are read."""
@@ -228,9 +199,12 @@ class Decoding:
     dtype: torch.dtype
 
     def modules(self, state_dict: Dict[str, torch.Tensor]):
+        from ..decode.pipeline import serving_modules
+
         spec = self.dcfg.speculative_gamma > 0
+        exp = self.exp
         return serving_modules(
-            self.exp, state_dict, self.dtype, self.device,
+            exp.resolved_dims(), exp.ts, exp.model, state_dict, self.dtype, self.device,
             cross_kv_bits=self.args.cross_kv_bits,
             self_kv_bits=self.args.self_kv_bits,
             # speculative decode needs the 5-D cache's per-row writes

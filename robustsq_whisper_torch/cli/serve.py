@@ -94,9 +94,10 @@ def build_engine(args: argparse.Namespace):
     """The ``TranscriptionEngine`` the daemon serves, and the ``info`` its
     ``/healthz`` reports. Raises without CUDA unless ``--device cpu``."""
     from .._device import resolve_device
+    from ..decode.pipeline import serving_modules
     from ..serve.engine import EngineConfig, TranscriptionEngine
     from ..tokenizer.whisper_tokenizer import load_tokenizer
-    from .decode import decode_config, load_exp, serving_modules, serving_weights
+    from .decode import decode_config, load_exp, serving_weights
     from .train import compute_dtype
 
     device = resolve_device(args.device)
@@ -109,7 +110,8 @@ def build_engine(args: argparse.Namespace):
         )
     dtype = compute_dtype(exp)
     encoder, decoder = serving_modules(
-        exp, serving_weights(exp, args, dtype), dtype, device,
+        exp.resolved_dims(), exp.ts, exp.model, serving_weights(exp, args, dtype), dtype,
+        device,
         cross_kv_bits=args.cross_kv_bits, self_kv_bits=args.self_kv_bits,
         # speculative decode needs the 5-D cache's per-row writes
         flat_self_cache=not dcfg.speculative_gamma,

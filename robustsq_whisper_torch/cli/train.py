@@ -1,13 +1,32 @@
-"""Model building shared by the port's command-line entry points.
+"""Training CLI: the recipe's stage 11 on the port.
 
-``build_model`` is the JAX package's ``cli/train.py::
-build_model_and_variables`` for the port: the ``TSASRModel`` of an
-experiment config with seeded random weights (``init.init_params``). The
-training ``main`` (the recipe's stage 11) comes with the training loop
-(ROADMAP A).
+Usage::
+
+    python -m robustsq_whisper_torch.cli.train \
+        --config conf/tswhisper/train_tsasr_whisper_medium_lora_qkvo_r16_.yaml \
+        --train_dir dump/raw/train_100_sglspk --valid_dir dump/raw/dev_sglspk \
+        --expdir exp/tswhisper [--pretrained medium.pt] [--device cuda]
+
+The flags are the JAX package's ``cli.train`` flags plus ``--device``
+(default ``cuda``; without CUDA the command raises unless ``--device
+cpu``) and ``--log_every``. Checkpoints go to ``{expdir}/checkpoints`` in
+the port's format (``train/checkpoint.py``), the n-best average to its
+``ave`` subdirectory; the port's ``cli.decode`` and ``cli.serve`` read both. A run
+resumes from the latest checkpoint there. Paths the port does not have yet
+(meshes, FSDP, embedding enrollment) stop with a message naming their
+ROADMAP item.
+
+``build_model`` is shared with ``cli.decode`` and ``cli.serve``: the
+experiment's ``TSASRModel`` with seeded random weights and, with
+``pretrained``, the Whisper encoder and decoder of an OpenAI checkpoint.
 """
 
 from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import sys
 
 import torch
 
@@ -16,23 +35,173 @@ from ..init import init_params
 from ..models import TSASRModel
 from ..utils.config import ExperimentConfig
 
+# flags of paths the port does not have yet: (flag, is it set?, ROADMAP item)
+UNSUPPORTED = (
+    ("--n_data", lambda a: (a.n_data or 1) > 1,
+     "data-parallel training is ROADMAP A15 (multi-GPU)"),
+    ("--n_model", lambda a: a.n_model > 1,
+     "tensor-parallel training is ROADMAP A15 (multi-GPU)"),
+    ("--fsdp", lambda a: a.fsdp is not None and a.fsdp,
+     "sharded (FSDP) training is ROADMAP A15 (multi-GPU)"),
+    ("--enroll_type", lambda a: a.enroll_type == "embedding",
+     "embedding enrollment is ROADMAP A14"),
+)
+
 
 def compute_dtype(exp: ExperimentConfig) -> torch.dtype:
     return torch.bfloat16 if exp.compute_dtype == "bfloat16" else torch.float32
 
 
+@torch.no_grad()
+def load_pretrained(model: TSASRModel, path: str, vocab_size: int) -> None:
+    """Copy an OpenAI Whisper checkpoint's encoder and decoder over the
+    model's Whisper submodules (every parameter of both), the token table
+    adapted to ``vocab_size`` (``load.adapt_vocab``)."""
+    from ..models.whisper import load
+
+    _, enc_sd, dec_sd = load.load_openai_checkpoint(path)
+    dec_sd = load.adapt_vocab(dec_sd, vocab_size)
+    for module, sd in ((model.encoder.encoder, enc_sd), (model.decoder.decoder, dec_sd)):
+        own = dict(module.named_parameters())
+        if own.keys() != sd.keys():
+            raise KeyError(f"{path}: the checkpoint's names differ from the model's: "
+                           f"{sorted(own.keys() ^ sd.keys())[:4]}")
+        for name, p in own.items():
+            if p.shape != sd[name].shape:
+                raise ValueError(f"{path}: {name} is {tuple(sd[name].shape)}, the model's "
+                                 f"{tuple(p.shape)}")
+            p.copy_(sd[name])
+
+
 def build_model(
     exp: ExperimentConfig, seed: int = 0, device="cuda", pretrained=None
 ) -> TSASRModel:
-    """The experiment's ``TSASRModel``, weights from ``init_params(seed)``,
-    in its training compute dtype (``set_compute_dtype``), on ``device``."""
-    if pretrained:
-        raise NotImplementedError(
-            "loading pretrained Whisper weights (models/whisper/load.py) is "
-            "ROADMAP A item 6"
-        )
+    """The experiment's ``TSASRModel``, weights from ``init_params(seed)``
+    and, with ``pretrained`` (an OpenAI whisper ``.pt``), its encoder and
+    decoder from that file, in its training compute dtype
+    (``set_compute_dtype``), on ``device``."""
     dev = resolve_device(device)
     model = init_params(TSASRModel(exp.resolved_dims(), exp.ts, exp.model), seed)
+    if pretrained:
+        if exp.ts.enroll_type == "embedding":  # TSASRModel raises before this
+            raise NotImplementedError("embedding enrollment is ROADMAP A14")
+        load_pretrained(model, pretrained, exp.model.vocab_size)
     if compute_dtype(exp) != torch.float32:
         model.set_compute_dtype(compute_dtype(exp))
     return model.to(dev)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from .decode import str2bool
+
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--config", required=True)
+    p.add_argument("--train_dir", required=True)
+    p.add_argument("--valid_dir", default=None,
+                   help="validation data dir; enables the per-epoch eval pass, n-best "
+                   "tracking and the averaged 'ave' checkpoint")
+    p.add_argument("--nbest", type=int, default=5,
+                   help="checkpoints kept and averaged by valid acc")
+    p.add_argument("--patience", type=int, default=0,
+                   help="early-stop epochs without a new best (0 = off)")
+    p.add_argument("--valid_wer_utts", type=int, default=0,
+                   help="per-epoch greedy-decode WER on this many valid utterances "
+                   "(valid.wer); 0 = off")
+    p.add_argument("--expdir", required=True)
+    p.add_argument("--pretrained", default=None,
+                   help="OpenAI whisper .pt checkpoint to warm-start from")
+    p.add_argument("--tokenizer_assets", default=None)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the hand-written kernels) or cpu (their plain PyTorch "
+                   "versions)")
+    p.add_argument("--n_data", type=int, default=None, help="a no-op at 1")
+    p.add_argument("--n_model", type=int, default=1, help="a no-op at 1")
+    p.add_argument("--fsdp", type=str2bool, default=None, help="a no-op when false")
+    p.add_argument("--num_epochs", type=int, default=None)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--enroll_type", default=None, choices=["audio", "embedding"])
+    p.add_argument("--enroll_prefix", default=None, help="embedding enrollment's scp")
+    p.add_argument("--ckpt_every_steps", type=int, default=1000,
+                   help="mid-epoch checkpoint cadence in steps (0 = none)")
+    p.add_argument("--ckpt_every_epochs", type=int, default=1,
+                   help="epoch-end checkpoint cadence; the last epoch always saves, and "
+                   "every epoch does with --valid_dir")
+    p.add_argument("--log_every", type=int, default=50,
+                   help="steps between logged means of the training stats")
+    p.add_argument("--seed", type=int, default=0)
+    return p
+
+
+def main(argv=None, metrics_hook=None) -> int:
+    """Train; ``metrics_hook(step, values)`` is ``run_training``'s."""
+    logging.basicConfig(
+        level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s: %(message)s",
+    )
+    from ..data.dataset import KaldiTSDataset
+    from ..tokenizer.whisper_tokenizer import load_tokenizer
+    from ..train.loop import LoopConfig, run_training
+    from ..utils.config import load_experiment
+    from .decode import check_supported
+
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    check_supported(parser, args, UNSUPPORTED)
+    dev = resolve_device(args.device)
+    exp = load_experiment(args.config)
+    if args.num_epochs is not None:
+        exp.num_epochs = args.num_epochs
+    if args.batch_size is not None:
+        exp.batch_size = args.batch_size
+    if exp.train.fsdp:
+        parser.error("train_conf.fsdp: sharded (FSDP) training is ROADMAP A15 (multi-GPU)")
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        logging.info("training on one device (multi-GPU is ROADMAP A15)")
+
+    tokenizer = load_tokenizer(args.tokenizer_assets)
+    ds_kwargs = dict(
+        speech_seconds=exp.speech_seconds, enroll_seconds=exp.enroll_seconds,
+        utt_style=exp.utt_style, num_speakers=exp.model.num_speakers, seed=args.seed,
+        enroll_type=exp.ts.enroll_type,
+    )
+    dataset = KaldiTSDataset(args.train_dir, tokenizer, **ds_kwargs)
+    logging.info("dataset: %d utterances", len(dataset))
+    valid_dataset = None
+    if args.valid_dir:
+        valid_dataset = KaldiTSDataset(args.valid_dir, tokenizer, **ds_kwargs)
+        logging.info("valid dataset: %d utterances", len(valid_dataset))
+    # the JAX CLI reads one unshuffled batch to initialise its model; read
+    # it too, so that both CLIs draw the same enrollments and crops after
+    next(dataset.batches(exp.batch_size, shuffle=False))
+
+    model = build_model(exp, args.seed, dev, args.pretrained)
+    lcfg = LoopConfig(
+        num_epochs=exp.num_epochs,
+        batch_size=exp.batch_size,
+        log_every=max(1, args.log_every),
+        ckpt_dir=f"{args.expdir}/checkpoints",
+        nbest=args.nbest,
+        patience=args.patience,
+        ckpt_every_epochs=max(1, args.ckpt_every_epochs),
+        ckpt_every_steps=max(0, args.ckpt_every_steps),
+        wer_utts=max(0, args.valid_wer_utts),
+        # the eval-time WER decodes dense weights, greedy or beam, attention
+        # only; a reduced vocabulary starts from the model's own sos
+        wer_decode=dataclasses.replace(
+            exp.decode, eot=exp.model.eos, quantize_weights=False, speculative_gamma=0,
+            ctc_decode_weight=0.0,
+            init_tokens=exp.decode.init_tokens
+            if max(exp.decode.init_tokens) < exp.model.vocab_size
+            else (exp.model.sos,),
+        ) if args.valid_wer_utts > 0 else None,
+    )
+    state = run_training(
+        model, dataset, exp.train, lcfg,
+        generator=torch.Generator(dev).manual_seed(args.seed),
+        metrics_hook=metrics_hook, valid_dataset=valid_dataset, device=dev, seed=args.seed,
+    )
+    logging.info("training done at step %d", state.step)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

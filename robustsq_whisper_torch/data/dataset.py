@@ -15,25 +15,32 @@ data dir containing::
 The random draws are the JAX package's, in its order, from one
 ``np.random.default_rng(seed)``: the shuffle of ``batches``, then per
 utterance the enrollment pick and the crop start; so a seed picks the same
-enrollments and crops in both packages. Speech is read per file with
-scipy; the JAX package's batched native loader (a host-throughput path)
-comes with the data layer. ``enroll_type="embedding"`` is ROADMAP A14.
+enrollments and crops in both packages. The speech window of a batch is
+read in one call of the native reader (``data/native_loader.py``, WAV and
+FLAC over a thread pool), or file by file with scipy where that reader
+cannot be built; ``BATCH_READS`` counts the batches each served.
+``enroll_type="embedding"`` is ROADMAP A14.
 """
 
 from __future__ import annotations
 
+import collections
+import logging
 import os
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
-from . import collate, kaldi_io
+from . import collate, kaldi_io, native_loader
+
+# batches whose speech each reader served, {"native": n, "scipy": m}
+BATCH_READS: collections.Counter = collections.Counter()
 
 
 class KaldiTSDataset:
     """Target-speaker triplet dataset: (speech, enroll, text) per utt, at
-    the JAX package's defaults for what no decode caller sets: 16 kHz audio,
-    128 text tokens, speaker ids unwrapped, ``spk2enroll.json`` in the dir."""
+    the JAX package's defaults for what no caller sets: 16 kHz audio, 128
+    text tokens, ``spk2enroll.json`` in the dir."""
 
     sample_rate = 16000
     text_len = 128
@@ -45,6 +52,7 @@ class KaldiTSDataset:
         speech_seconds: float = 30.0,
         enroll_seconds: float = 10.0,
         utt_style: str = "libri2mix",
+        num_speakers: Optional[int] = None,
         seed: int = 0,
         enroll_type: str = "audio",
     ):
@@ -57,6 +65,7 @@ class KaldiTSDataset:
         self.speech_samples = int(speech_seconds * self.sample_rate)
         self.enroll_samples = int(enroll_seconds * self.sample_rate)
         self.utt_style = utt_style
+        self.num_speakers = num_speakers
         self.rng = np.random.default_rng(seed)
         self.speaker_to_id: Dict[str, int] = {}
 
@@ -67,6 +76,10 @@ class KaldiTSDataset:
         s2e = os.path.join(data_dir, "spk2enroll.json")
         self.spk2enroll = kaldi_io.read_spk2enroll(s2e) if os.path.exists(s2e) else None
         self.utt_ids: List[str] = sorted(set(self.wav) & set(self.text))
+        self.reader = native_loader.reader()
+        logging.getLogger("robustsq_whisper_torch.data").info(
+            "%s: %d utterances, speech read by the %s reader",
+            data_dir, len(self.utt_ids), self.reader)
 
     def __len__(self) -> int:
         return len(self.utt_ids)
@@ -102,7 +115,14 @@ class KaldiTSDataset:
                 # a short last batch wraps to the first utterances
                 idx = np.concatenate([idx, order[: batch_size - len(idx)]])
             utts = [self.utt_ids[j] for j in idx]
-            speech = [self._load_audio(self.wav[u].split()[0]) for u in utts]
+            paths = [self.wav[u].split()[0] for u in utts]
+            if self.reader == "native":
+                window, lens = native_loader.load_batch(
+                    paths, self.speech_samples, expect_rate=self.sample_rate)
+                speech = [window[r, : lens[r]] for r in range(len(utts))]
+            else:
+                speech = [self._load_audio(p) for p in paths]
+            BATCH_READS[self.reader] += 1
             enroll = [self._enroll_audio(u) for u in utts]
             texts = [np.asarray(self.tokenizer.encode(self.text[u]), np.int32) for u in utts]
             batch = collate.collate_batch(
@@ -112,6 +132,7 @@ class KaldiTSDataset:
                 text_len=self.text_len,
                 style=self.utt_style,
                 speaker_to_id=self.speaker_to_id,
+                num_speakers=self.num_speakers,
             )
             batch["utt_ids"] = utts  # host-only metadata
             yield batch

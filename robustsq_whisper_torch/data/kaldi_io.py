@@ -1,16 +1,17 @@
 """Kaldi data-dir IO: the part of the JAX package's ``data/kaldi_io.py``
-that decoding reads.
+that training and decoding read.
 
 - ``read_scp`` / ``write_scp``: the two-column ``key value`` text maps
   (wav.scp, utt2spk, text, enroll.scp, ...);
 - lazy-enrollment rows ``*<utt_id> <spk_id>`` resolved against a
   ``spk2enroll.json`` (``{spk: [[utt, path], ...]}``);
-- WAV read/write through scipy (16-bit PCM <-> float32 in [-1, 1]).
+- WAV read/write through scipy (16-bit PCM <-> float32 in [-1, 1]); FLAC
+  (LibriSpeech's format) is read by the native decoder
+  (``native/flac.cpp`` through ``data/native_loader.py``), and raises where
+  that cannot be built.
 
-FLAC is read by the JAX package's native decoder (``native/flac.cpp``),
-which comes to the port with the data layer (ROADMAP A, the data-layer
-item): here a FLAC file raises ``NotImplementedError``. The validators and
-the data-prep helpers come with it too.
+The validators and the data-prep helpers come with ``cli.datapre``
+(ROADMAP A).
 """
 
 from __future__ import annotations
@@ -120,14 +121,18 @@ def pcm_to_float(data: np.ndarray) -> np.ndarray:
 
 
 def read_wav(path: str) -> Tuple[np.ndarray, int]:
-    """Read a WAV file to float32 [-1, 1]; returns (audio, sample_rate)."""
+    """Read a WAV or FLAC file to float32 [-1, 1]; returns (audio,
+    sample_rate)."""
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic == b"fLaC":
-        raise NotImplementedError(
-            f"{path}: FLAC needs the native decoder, which comes with the data "
-            "layer (ROADMAP A: native/ and the batched loader)"
-        )
+        from . import native_loader
+
+        if not native_loader.available():
+            raise RuntimeError(f"{path}: FLAC needs the native reader, which could not be built")
+        n, sr = native_loader.num_samples(path)
+        batch, _ = native_loader.load_batch([path], n, expect_rate=0)
+        return batch[0], sr
     from scipy.io import wavfile
 
     sr, data = wavfile.read(path)

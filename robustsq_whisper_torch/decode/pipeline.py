@@ -1,6 +1,9 @@
 """The serving program pair (encode, run), the sub-batched encode, and the
 decode of a Kaldi data dir with WER / CER scoring.
 
+``serving_modules`` builds the serving encoder and decoder from a
+``TSASRModel`` state dict: ``cli.decode``, ``cli.serve`` and the training
+loop's valid WER (``train/eval.py::ValidWer``) all serve through it.
 Mirrors the single-device Qformer case of the JAX package's
 ``decode/pipeline.py``. ``build_decode_fns``: greedy or beam search as
 ``DecodeConfig.beam_size`` says (``run`` returns the best beam of each
@@ -47,6 +50,33 @@ class DecodeResult:
     @property
     def rtf(self) -> float:
         return self.audio_seconds / max(self.wall_seconds, 1e-9)
+
+
+def serving_modules(
+    dims, ts, mcfg, state_dict: Dict[str, torch.Tensor], dtype: torch.dtype, device,
+    cross_kv_bits: int = 8, self_kv_bits: int = 16, flat_self_cache: bool = True,
+):
+    """``(QFormerTSEncoder, TSDecoder)`` of the model ``(dims, ts, mcfg)``
+    (``WhisperDims``, ``TSEncoderConfig``, ``ModelConfig``) on ``device``,
+    every floating tensor in ``dtype`` (serving keeps the weights in the
+    compute dtype), loaded from the ``encoder.`` and ``decoder.`` entries of
+    a ``TSASRModel`` state dict."""
+    with torch.device(device):
+        encoder = QFormerTSEncoder(dims, ts)
+        decoder = TSDecoder(
+            dims.replace(n_vocab=mcfg.vocab_size),
+            startofprev_token=mcfg.startofprev,
+            cross_kv_bits=cross_kv_bits, self_kv_bits=self_kv_bits,
+            flat_self_cache=flat_self_cache,
+        )
+    for prefix, module in (("encoder.", encoder), ("decoder.", decoder)):
+        module.to(device=device, dtype=dtype)
+        module.load_state_dict(
+            {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)},
+            strict=True,
+        )
+        module.eval()
+    return encoder, decoder
 
 
 def chunked_encode(enc_fn, feats, feats_lens, efeats, efeats_lens, chunk):

@@ -109,13 +109,19 @@ class TSASRModel(nn.Module):
         self.aam = AAMSoftmaxHead(cfg.num_speakers, dims.n_audio_state, cfg.aam_temp)
 
     def set_compute_dtype(self, dtype: torch.dtype) -> "TSASRModel":
-        """Encoder and decoder parameters to ``dtype``, except the layer
-        norms; the loss heads stay f32."""
+        """Encoder and decoder parameters and buffers to ``dtype``, except
+        the layer norms, whose values are not rounded; the loss heads stay
+        f32."""
         for m in (self.encoder, self.decoder):
-            m.to(dtype)
             for sub in m.modules():
                 if isinstance(sub, LayerNorm):
                     sub.float()
+                    continue
+                for p in sub.parameters(recurse=False):
+                    p.data = p.data.to(dtype)
+                for name, b in sub.named_buffers(recurse=False):
+                    if b.is_floating_point():
+                        setattr(sub, name, b.to(dtype))
         for m in (self.ctc, self.asp, self.aam):
             m.float()
         return self

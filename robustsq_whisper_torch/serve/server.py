@@ -24,7 +24,9 @@ import base64
 import io
 import json
 import logging
+import os
 import queue
+import tempfile
 import threading
 import time
 from concurrent.futures import Future
@@ -40,22 +42,26 @@ logger = logging.getLogger("robustsq_whisper_torch.serve")
 
 
 def audio_from_bytes(data: bytes, expect_rate: int = 16000) -> np.ndarray:
-    """Decode WAV bytes to float32 [-1, 1] at ``expect_rate`` (in memory:
-    scipy reads file-likes). FLAC raises ``NotImplementedError`` until the
-    native decoder comes with the data layer."""
-    from scipy.io import wavfile
-
-    from ..data.kaldi_io import pcm_to_float
+    """Decode WAV or FLAC bytes to float32 [-1, 1] at ``expect_rate``. WAV
+    is read in memory (scipy reads file-likes); FLAC goes through the
+    native decoder, which reads files, by way of a temporary file."""
+    from ..data.kaldi_io import pcm_to_float, read_wav
 
     if data[:4] == b"fLaC":
-        raise NotImplementedError(
-            "FLAC needs the native decoder, which comes with the data layer "
-            "(ROADMAP A: native/ and the batched loader)"
-        )
-    sr, raw = wavfile.read(io.BytesIO(data))
+        with tempfile.NamedTemporaryFile(suffix=".flac", delete=False) as f:
+            f.write(data)
+        try:
+            audio, sr = read_wav(f.name)
+        finally:
+            os.unlink(f.name)
+    else:
+        from scipy.io import wavfile
+
+        sr, raw = wavfile.read(io.BytesIO(data))
+        audio = pcm_to_float(raw)
     if sr != expect_rate:
         raise ValueError(f"expected {expect_rate} Hz audio, got {sr}")
-    return pcm_to_float(raw)
+    return audio
 
 
 class MicroBatcher:

@@ -58,7 +58,13 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 
 def _opt_state(state: TrainState) -> Dict[str, Any]:
     opt = state.opt
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    for n, (a, b) in state.lora.items():
+        names[id(a)], names[id(b)] = f"lora:{n}:a", f"lora:{n}:b"
     return {
+        # what each optimizer tensor belongs to: a parameter's name, or a
+        # LoRA factor's ``lora:<weight>:a|b``
+        "names": [names[id(p)] for p in opt.params],
         "count": int(opt.count),
         "mini_step": int(opt.mini_step),
         # an f32 parameter is its own master: stored once, under params
@@ -99,6 +105,16 @@ def save_checkpoint(
         "epoch": int(epoch),
         "generator": None if generator is None else generator.get_state(),
     }
+    return write_payload(ckpt_dir, step, payload, keep)
+
+
+def write_payload(
+    ckpt_dir: str, step: int, payload: Dict[str, Any], keep: Optional[int] = 3,
+) -> str:
+    """Write a checkpoint's payload (``save_checkpoint``'s dict) as step
+    ``step``, replacing one there, then apply the retention ``keep``."""
+    ckpt_dir = os.path.abspath(ckpt_dir)
+    os.makedirs(ckpt_dir, exist_ok=True)
     # written beside the step and renamed into place: a step directory
     # always holds a whole checkpoint
     tmp = os.path.join(ckpt_dir, f".tmp-{step}")
@@ -128,7 +144,9 @@ def prune_checkpoints(ckpt_dir: str, keep: int, protected: Any = ()) -> None:
         _delete(ckpt_dir, s)
 
 
-def _load(ckpt_dir: str, step: Optional[int]) -> Tuple[Dict[str, Any], int]:
+def read_payload(ckpt_dir: str, step: Optional[int] = None) -> Tuple[Dict[str, Any], int]:
+    """A checkpoint's payload on the host and its step (the latest when
+    ``step`` is None)."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -141,7 +159,7 @@ def restore_weights(
 ) -> Tuple[Tensors, Tensors, Factors, int, int]:
     """Serving-path restore: ``(params, buffers, lora, step, epoch)`` as
     host tensors (no optimizer state, no model)."""
-    raw, _ = _load(ckpt_dir, step)
+    raw, _ = read_payload(ckpt_dir, step)
     lora = {n: (a, b) for n, (a, b) in raw["lora"].items()}
     return raw["params"], raw["buffers"], lora, int(raw["step"]), int(raw["epoch"])
 
@@ -180,7 +198,7 @@ def restore_checkpoint(
     When the stored optimizer state does not fit ``state``'s (another mode
     or LoRA layout), the weights alone are restored and the optimizer keeps
     its fresh moments, as the JAX package does."""
-    raw, step = _load(ckpt_dir, step)
+    raw, step = read_payload(ckpt_dir, step)
     model = state.model
     with torch.no_grad():
         own = dict(model.named_parameters())

@@ -81,9 +81,11 @@ def test_read_wav_equals_jax(data_dir, tmp_path):
 
 
 def test_flac_raises(tmp_path):
+    """A FLAC file goes to the native reader (tests/test_torch_native.py
+    holds it to the JAX decoder), which raises for one with no STREAMINFO."""
     path = tmp_path / "a.flac"
     path.write_bytes(b"fLaC" + bytes(64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(IOError, match="cannot parse the audio header"):
         pkio.read_wav(str(path))
 
 

@@ -238,5 +238,12 @@ def test_audio_from_bytes_round_trip():
     np.testing.assert_allclose(back, wav, atol=2 / 32768)
     with pytest.raises(ValueError):
         audio_from_bytes(data, 8000)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # FLAC goes to the native decoder, as in the JAX package
+    from tests.test_torch_native import _voice, encode_flac
+
+    flac = encode_flac(_voice(1600, seed=1), ["fixed2"])
+    np.testing.assert_array_equal(audio_from_bytes(flac, SR), jaudio(flac, SR))
+    with pytest.raises(ValueError):
+        audio_from_bytes(flac, 8000)
+    with pytest.raises(IOError, match="cannot parse"):
         audio_from_bytes(b"fLaC" + bytes(32), SR)
