@@ -29,7 +29,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    int8, time-minor), beam 3 over the dense flat cache (eager reorder, and
    ``defer_reorder=4``), the 5-D cache and the int8 flat cache, and
    speculative decode with a self-draft and with a separate 1-layer draft;
-   the tokens (and acceptance counters) must be identical;
+   then the remaining decode paths (``check_small_remaining``): zero-shot
+   ``WhisperASR`` greedy and beam 3, joint CTC/attention beam 3, greedy
+   with the timestamp rules, and speculative decode with a 1-layer draft
+   distilled on the CPU (``train/distill.py``); the tokens (and acceptance
+   counters) must be identical;
 4. the main paths at full Whisper-medium width and depth (bf16, seeded
    random weights, the bench lanes' settings), each a
    ``TranscriptionEngine.transcribe`` on 4 synthetic (30 s speech, 10 s
@@ -37,10 +41,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``prefill_quantized`` off and on, beam 5 (20 beam rows) with the eager
    reorder and with ``defer_reorder=8``, then greedy over the int8 flat and
    the time-minor caches, beam 5 over the 5-D and the int8 flat caches, and
-   speculative decode (gamma 10, a 1-layer self-draft, the 5-D cache). Every
-   kernel's launch count is set to 0 just before each run, and each kernel
-   of that run's path must show > 0 after it. A phase-timed greedy pass
-   prints frontend, encode, cross-KV + prefill and token-loop times;
+   speculative decode (gamma 10, a 1-layer self-draft, the 5-D cache), and
+   zero-shot ``WhisperASR`` (the medium weights without the speaker prompt)
+   greedy and beam 3. Every kernel's launch count is set to 0 just before
+   each run, and each kernel of that run's path must show > 0 after it. A
+   phase-timed greedy pass prints frontend, encode, cross-KV + prefill and
+   token-loop times;
    speculative decode must give the 5-D greedy's tokens with the decoder in
    f32 (in bf16 the share of identical tokens is printed);
 4b. the entry points at Whisper-medium: a Kaldi data dir of 8 utterances
@@ -60,6 +66,19 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    seeded and nonzero, and the checkpoint's serving restore must equal
    ``merge_lora`` of the in-memory weights tensor for tensor. The decode walls and RTFs and the request latencies are
    printed with the card's name and power limit;
+4d. the remaining decode paths over 4b's data dir, checkpoint and yamls
+   (``run_remaining_paths``; each run counted like 4's, its kernels in
+   ``EXTRA_PATHS``): ``cli.distill.main`` distils a 1-layer draft (50 steps
+   at batch 8 over the 8 utterances; steps/s and ``final_agreement``
+   printed); ``cli.decode --speculative_gamma 10 --draft_path`` must give
+   ``decode_dataset``'s text with the same draft in memory, byte for byte,
+   and its acceptance is printed beside the 1-layer self-draft's; on one
+   encoder batch, speculative decode with the draft must give the 5-D
+   greedy tokens with the decoder in f32 (the share is printed in bf16);
+   ``cli.serve --draft_path`` answers 4 requests, each equal to
+   ``engine.transcribe``; then ``cli.decode --ctc_weight 0.3`` at beam 5,
+   ``--timestamps true`` (a ``segments`` file) and ``--long_audio true``
+   over a second dir of 4 utterances of 75 s (three windows each);
 4c. the training entry point at Whisper-medium: train and valid dirs of 24
    and 8 such pairs, a synthetic OpenAI-format medium.en ``.pt`` (fp16,
    one token short of the config's vocabulary) and the medium lora config
@@ -890,6 +909,94 @@ def check_small_agreement(torch, dev) -> None:
         raise AssertionError("kernels and plain versions disagree on a small input")
 
 
+def check_small_remaining(torch, dev) -> None:
+    """Phase 3, the remaining decode paths: ``WhisperASR`` greedy and beam 3,
+    joint CTC/attention beam 3, greedy with the timestamp rules and
+    speculative decode with a distilled 1-layer draft (distilled once, on
+    the CPU), each with the kernels in f32 on the card and the plain
+    versions on the CPU; the tokens (and acceptance counters) must be
+    identical."""
+    from robustsq_whisper_torch.decode.joint import build_joint_beam_decoder
+    from robustsq_whisper_torch.decode.search import DecodeConfig, build_beam_decoder, strip_eot
+    from robustsq_whisper_torch.decode.speculative import build_speculative_decoder
+    from robustsq_whisper_torch.init import init_params
+    from robustsq_whisper_torch.models import TSDecoder, WhisperDims
+    from robustsq_whisper_torch.models.asr import WhisperASR
+    from robustsq_whisper_torch.train.distill import distill_draft, teacher_forcing_inputs
+
+    rng = np.random.default_rng(9)
+    dims = WhisperDims(
+        n_mels=80, n_vocab=120, n_audio_ctx=256, n_audio_state=128, n_audio_head=2,
+        n_audio_layer=2, n_text_ctx=64, n_text_state=128, n_text_head=2, n_text_layer=2,
+    )
+    f32 = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    memory = f32(2, 4 + 40, 128) * 3
+    prompt = memory[:, :4].clone()
+    mem_lens = torch.tensor([44, 30])
+    ctc_lo = (f32(120, 128) * 0.2, f32(120) * 0.5)
+    audio = f32(2, 16000 * 3)
+    dec = init_params(TSDecoder(dims, startofprev_token=3, cross_kv_bits=4), 4).eval()
+    dec5 = decoder_with(dec, flat_self_cache=False)
+    base = dict(max_new_tokens=12, eot=2, init_tokens=(1, 4))
+    ts_cfg = DecodeConfig(**base, with_timestamps=True, timestamp_begin=100,
+                          max_initial_timestamp_index=4, quantize_cross_kv=True)
+    spec_cfg = DecodeConfig(**base, quantize_cross_kv=True, speculative_gamma=4, draft_layers=1)
+
+    # the distilled draft: 20 steps against the teacher's greedy rows
+    g_tok, _ = build_beam_decoder(dec5, DecodeConfig(**base, quantize_cross_kv=True),
+                                  device="cpu")(memory, prompt)
+    rows = strip_eot(g_tok, 2)
+    text = np.full((2, 1 + max(map(len, rows))), -1, np.int32)
+    for i, r in enumerate(rows):
+        text[i, : 1 + len(r)] = [4] + r
+    ys, mask = teacher_forcing_inputs(text, np.array([1 + len(r) for r in rows]), 1, 2)
+    draft, stats = distill_draft(dec5, 1, memory, prompt, ys, mask, steps=20, lr=1e-3,
+                                 batch_size=2, seed=0)
+    asr_sd = WhisperASR.from_random("dev", seed=5, device="cpu", n_vocab=120,
+                                    n_audio_state=128, n_text_state=128, n_text_ctx=64)
+
+    def asr_on(where, beam):
+        enc, d = WhisperASR.build(asr_sd.dims)
+        enc.load_state_dict(asr_sd.encoder.state_dict())
+        d.load_state_dict(asr_sd.decoder.state_dict())
+        return WhisperASR(asr_sd.dims, enc, d, device=where).transcribe_batch(
+            audio, max_new_tokens=8, beam_size=beam)
+
+    cases = {
+        "WhisperASR greedy": lambda w: asr_on(w, 1),
+        "WhisperASR beam 3": lambda w: asr_on(w, 3),
+        "joint CTC beam 3 w=0.3": lambda w: build_joint_beam_decoder(
+            copy.deepcopy(dec), ctc_lo, DecodeConfig(**base, beam_size=3, ctc_decode_weight=0.3,
+                                                     pre_beam=6), prompt_frames=4, device=w,
+        )(memory, prompt, mem_lens),
+        "greedy with timestamps": lambda w: build_beam_decoder(copy.deepcopy(dec), ts_cfg, w)(
+            memory, prompt),
+        "speculative distilled draft": lambda w: build_speculative_decoder(
+            copy.deepcopy(dec5), spec_cfg, w, return_stats=True, draft=copy.deepcopy(draft),
+        )(memory, prompt),
+    }
+    ok = True
+    for name, fn in cases.items():
+        out = {}
+        for where in ("cpu", dev):
+            res = fn(where)
+            out[str(where)] = [x.cpu() for x in res[:2]] + [
+                {k: v.cpu() for k, v in res[2].items()} if len(res) > 2 else {}]
+        (t_cpu, s_cpu, st_cpu), (t_gpu, s_gpu, st_gpu) = out["cpu"], out[str(dev)]
+        s_err = (s_cpu - s_gpu).abs().max().item()
+        same_stats = all(torch.equal(st_cpu[k], st_gpu[k]) for k in st_cpu)
+        log(f"small agreement, {name}: score max_abs_err {s_err:.3e} (tol 1e-3, f32); "
+            f"tokens card {t_gpu.tolist()} cpu {t_cpu.tolist()}"
+            + (f"; acceptance card { {k: v.tolist() for k, v in st_gpu.items()} } equal on "
+               f"the CPU {same_stats}; draft final_agreement {stats['final_agreement']}"
+               if st_cpu else ""))
+        ok = ok and s_err <= 1e-3 and torch.equal(t_cpu, t_gpu) and same_stats
+        if name == "speculative distilled draft" and not torch.equal(t_cpu, g_tok):
+            raise AssertionError("speculative decode with the distilled draft differs from greedy")
+    if not ok:
+        raise AssertionError("kernels and plain versions disagree on a remaining decode path")
+
+
 TRAIN_B, TRAIN_HEADS, TRAIN_T = 8, 16, 1500 + 16  # the JAX bench's training shape
 
 
@@ -1204,8 +1311,9 @@ def run_train_paths(torch, dev):
     return launches, profiled, rates
 
 
-def synthetic_pairs(n: int, seed: int):
-    """(speech 30 s, enrollment 10 s) pairs: tones with harmonics + noise."""
+def synthetic_pairs(n: int, seed: int, seconds: float = 30.0):
+    """(speech ``seconds``, enrollment 10 s) pairs: tones with harmonics +
+    noise."""
     rng = np.random.default_rng(seed)
     sr = 16000
 
@@ -1215,7 +1323,7 @@ def synthetic_pairs(n: int, seed: int):
         env = 0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t)
         return (0.1 * x * env + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
 
-    return [(voice(30.0, 110 + 20 * i), voice(10.0, 110 + 20 * i)) for i in range(n)]
+    return [(voice(seconds, 110 + 20 * i), voice(10.0, 110 + 20 * i)) for i in range(n)]
 
 
 def launch_counters():
@@ -1495,6 +1603,42 @@ def run_layout_paths(torch, dev, models, batch: int, max_new: int):
     return launches
 
 
+ASR_PATHS = {  # path: (beam size, kernels it must launch)
+    "WhisperASR greedy": (1, ("decode_self_attention",)),
+    "WhisperASR beam 3": (3, ("decode_self_attention", "beam_reorder_cache")),
+}
+
+
+def run_asr_paths(torch, dev, models, batch: int, max_new: int):
+    """Phase 4, zero-shot ``WhisperASR`` at Whisper-medium (bf16): the
+    medium weights without the speaker prompt, its plain-attention encoder
+    (``use_flash=False``, the JAX default) and the dense cross K/V over the
+    flat self cache, greedy and beam 3 on 30 s audio, each run counted."""
+    from robustsq_whisper_torch.models.asr import WhisperASR
+    from robustsq_whisper_torch.models.whisper.modules import AudioEncoder
+
+    dims, enc, dec = models
+    with torch.device("meta"):
+        audio_enc = AudioEncoder(dims)
+    audio_enc.load_state_dict(enc.encoder.state_dict(), assign=True)
+    asr = WhisperASR(dims, audio_enc, decoder_with(dec, use_spk_prompt=False),
+                     dtype=torch.bfloat16, device=dev)
+    audio = torch.from_numpy(np.stack([sp for sp, _ in synthetic_pairs(batch, seed=0)]))
+    launches = {}
+    for path, (beam, expect) in ASR_PATHS.items():
+        asr.transcribe_batch(audio[:1], max_new_tokens=4, beam_size=beam)  # warm-up
+        (tokens, scores), wall, counts = counted(
+            torch, lambda: asr.transcribe_batch(audio, max_new_tokens=max_new, beam_size=beam))
+        launches[path] = counts
+        log(f"{path} at medium on {gpu_info()}: {wall * 1e3:.1f} ms for {batch} x 30 s "
+            f"(RTF {batch * 30.0 / wall:.1f}); launches {counts}")
+        missing = [n for n in expect if counts[n] == 0]
+        if missing or tokens.shape != (batch, max_new) or not torch.isfinite(scores).all():
+            raise AssertionError(f"{path}: kernels not launched {missing}, tokens "
+                                 f"{tuple(tokens.shape)}, scores {scores.tolist()}")
+    return launches
+
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ENTRY_CONFIG = os.path.join(ROOT, "conf/tswhisper/train_tsasr_whisper_medium_lora_qkvo_r16_.yaml")
 ENTRY_RANKS = os.path.join(ROOT, "tests/assets/mini_ranks.tiktoken")
@@ -1508,13 +1652,14 @@ ENTRY_REFS = ("the cat sat on the mat", "a quick brown fox", "hello from the oth
               "it's all in the mind", "then there were none")
 
 
-def write_data_dir(root: str, n: int):
+def write_data_dir(root: str, n: int, seconds: float = 30.0):
     """A Kaldi data dir of ``n`` utterances (wav.scp, text, utt2spk,
-    enroll.scp): the synthetic 30 s speech and 10 s enrollments as WAV."""
+    enroll.scp): the synthetic speech of ``seconds`` and 10 s enrollments
+    as WAV."""
     from robustsq_whisper_torch.data import kaldi_io
 
     wav, text, utt2spk, enroll = {}, {}, {}, {}
-    for i, (speech, enr) in enumerate(synthetic_pairs(n, seed=1)):
+    for i, (speech, enr) in enumerate(synthetic_pairs(n, seed=1, seconds=seconds)):
         utt = f"{100 + i}-0-0000_{200 + i}-0-0000_spk1"
         wav[utt] = os.path.join(root, "wavs", f"{utt}.wav")
         enroll[utt] = os.path.join(root, "wavs", f"{utt}_enroll.wav")
@@ -1744,11 +1889,224 @@ def run_entry_points(torch, dev):
                                  f"stats {stats}")
         del engine
         torch.cuda.empty_cache()
+        report["phase_s"] = time.perf_counter() - t_phase
+        log(f"entry points on {gpu_info()}: {json.dumps(report)}")
+        launches.update(run_remaining_paths(torch, dev, root, data_dir, wavs, enrolls, memory_sd))
     finally:
         whisper_tokenizer.load_tokenizer = load_tokenizer
         shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+SPEC_KERNELS = ("decode_cross_attention", "flash_attention_tmaj")  # the 5-D cache is plain
+EXTRA_PATHS = {  # phase 4d: path -> kernels it must launch
+    # cli.distill's encoder takes the config's flash route (use_flash_attention
+    # without flash_tmaj: the row-major forward kernel); its teacher decode
+    # runs the dense cross K/V over the 5-D cache and the training plain
+    "cli.distill": ("flash_attention",),
+    "cli.decode --draft_path": SPEC_KERNELS,
+    "cli.decode self-draft": SPEC_KERNELS,
+    "cli.serve --draft_path": SPEC_KERNELS,
+    # joint decode is dense (no cross kernel) and reorders by index_select
+    "cli.decode --ctc_weight 0.3": ("decode_self_attention", "flash_attention_tmaj"),
+    "cli.decode --timestamps": GREEDY_KERNELS,
+    "cli.decode --long_audio": GREEDY_KERNELS,
+}
+
+
+def run_remaining_paths(torch, dev, root, data_dir, wavs, enrolls, memory_sd):
+    """Phase 4d: the remaining decode paths through the entry points, over
+    phase 4b's data dir, lora checkpoint and inference yamls (token-id
+    texts): ``cli.distill`` (a 1-layer draft, 50 steps at batch 8 over the
+    8 utterances), ``cli.decode --speculative_gamma 10 --draft_path`` (text
+    byte-identical to ``decode_dataset`` with the same draft in memory; the
+    acceptance printed beside the 1-layer self-draft's; speculative against
+    5-D greedy tokens, exact with the decoder in f32, the share printed in
+    bf16), ``cli.serve --draft_path`` (4 requests, each equal to
+    ``engine.transcribe``), ``cli.decode --ctc_weight 0.3`` at beam 5,
+    ``cli.decode --timestamps true`` and ``cli.decode --long_audio true``
+    over a second dir of 4 utterances of 75 s (three windows each). Each
+    run's launch counts are set to 0 just before it and read after it.
+    Returns {path: launches}."""
+    import threading
+
+    from robustsq_whisper_torch.cli import decode as cli_decode
+    from robustsq_whisper_torch.cli import distill as cli_distill
+    from robustsq_whisper_torch.cli import serve as cli_serve
+    from robustsq_whisper_torch.data import kaldi_io
+    from robustsq_whisper_torch.decode.pipeline import build_decode_fns, decode_dataset
+    from robustsq_whisper_torch.decode.search import build_beam_decoder, strip_eot
+    from robustsq_whisper_torch.decode.speculative import build_speculative_decoder
+    from robustsq_whisper_torch.serve import audio_from_bytes, make_server
+    from robustsq_whisper_torch.train import distill as distill_mod
+
+    t_phase = time.perf_counter()
+    launches, report = {}, {}
+    info = gpu_info()
+    exp_dir, draft_dir = os.path.join(root, "exp"), os.path.join(root, "draft")
+
+    def argv(beam, out, *extra, data=data_dir):
+        return ["--config", ENTRY_CONFIG, "--inference_config",
+                os.path.join(root, f"decode_beam{beam}.yaml"), "--data_dir", data,
+                "--expdir", exp_dir, "--output_dir", out, "--cross_kv_bits", "4",
+                "--batch_size", "4", "--tokenizer_assets", ENTRY_RANKS, "--device", str(dev),
+                *extra]
+
+    def expect(path, counts, rc=0):
+        launches[path] = counts
+        missing = [n for n in EXTRA_PATHS[path] if counts[n] == 0]
+        if rc != 0 or missing:
+            raise AssertionError(f"{path}: rc {rc}, kernels not launched: {missing}")
+
+    def decode_cli(path, args, n_utts):
+        rc, wall, counts = counted(torch, lambda: cli_decode.main(args))
+        out = args[args.index("--output_dir") + 1]
+        hyps = kaldi_io.read_scp(os.path.join(out, "text"))
+        with open(os.path.join(out, "score.txt")) as f:
+            scores = {k: float(v) for k, v in (line.split() for line in f)}
+        log(f"{path} on {info}: rc {rc}, main {wall:.2f} s, RTF {scores['rtf']:.2f} (decode "
+            f"loop); scores {scores}; launches {counts}")
+        expect(path, counts, rc)
+        if len(hyps) != n_utts or not any(hyps.values()) or not {"wer", "cer"} <= scores.keys():
+            raise AssertionError(f"{path}: {len(hyps)} hypotheses, scores {scores}")
+        report[path] = {"main_s": wall, "rtf": scores["rtf"]}
+        return hyps, scores, out
+
+    # cli.distill, the draft's training timed inside the entry point
+    timed = {}
+    inner = distill_mod.distill_draft
+
+    def timed_distill(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **kw)
+        torch.cuda.synchronize()
+        timed.update(wall=time.perf_counter() - t0, **out[1])
+        return out
+
+    distill_mod.distill_draft = timed_distill
+    try:
+        rc, wall, counts = counted(torch, lambda: cli_distill.main([
+            "--config", ENTRY_CONFIG, "--expdir", exp_dir, "--data_dir", data_dir,
+            "--out", draft_dir, "--tokenizer_assets", ENTRY_RANKS, "--draft_layers", "1",
+            "--steps", "50", "--batch_size", "8", "--max_items", "8", "--max_new_tokens", "32",
+            "--device", str(dev)]))
+    finally:
+        distill_mod.distill_draft = inner
+    expect("cli.distill", counts, rc)
+    with open(os.path.join(draft_dir, "meta.json")) as f:
+        meta = json.load(f)
+    steps_s = timed["steps"] / timed["wall"]
+    log(f"cli.distill on {info}: main {wall:.2f} s, 50 steps at batch 8 in "
+        f"{timed['wall']:.2f} s ({steps_s:.2f} steps/s, with the end-of-run agreement "
+        f"pass), final_loss {timed['final_loss']}, final_agreement "
+        f"{timed['final_agreement']}; meta {meta}; launches {counts}")
+    if meta["corpus_items"] != 8 or not 0.0 <= meta["final_agreement"] <= 1.0:
+        raise AssertionError(f"cli.distill meta {meta}")
+    report["cli.distill"] = {"main_s": wall, "steps_per_s": steps_s,
+                             "final_agreement": timed["final_agreement"]}
+
+    # speculative decode with the distilled draft, and with a 1-layer self-draft
+    spec = ("--speculative_gamma", "10")
+    d_args = argv(1, os.path.join(root, "spec_draft"), *spec, "--draft_path", draft_dir)
+    _, d_scores, d_out = decode_cli("cli.decode --draft_path", d_args, 8)
+    _, s_scores, _ = decode_cli("cli.decode self-draft", argv(
+        1, os.path.join(root, "spec_self"), *spec, "--draft_layers", "1"), 8)
+    acc = lambda sc: {k: sc[k] for k in ("spec_acceptance_rate", "spec_tokens_per_chunk",
+                                         "spec_chunks")}
+    log(f"draft acceptance at medium on {info} (gamma 10, seeded random weights): distilled "
+        f"1-layer draft {acc(d_scores)}; 1-layer self-draft {acc(s_scores)}")
+    report["acceptance"] = {"distilled": acc(d_scores), "self": acc(s_scores)}
+    d = cli_decode.prepare(d_args)
+    enc, dec = d.modules(memory_sd)
+    draft = d.draft(dec)
+    decode_dataset(enc, dec, d.dataset, d.tokenizer, d.dcfg, batch_size=4,
+                   output_dir=d_out + "_in_memory", device=dev, draft=draft)
+    with open(os.path.join(d_out, "text"), "rb") as f, \
+            open(os.path.join(d_out + "_in_memory", "text"), "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("--draft_path hypotheses differ from decode_dataset's with the "
+                                 "draft in memory")
+    # speculative with the draft against 5-D greedy on one encoder batch
+    encode, _ = build_decode_fns(enc, dec, d.dcfg, device=dev, draft=draft)
+    batch = next(d.dataset.batches(4, shuffle=False, drop_last=False))
+    from robustsq_whisper_torch.audio.frontend import log_mel_spectrogram, pcm16_to_float, to_pcm16
+
+    def mel(wave, lens):
+        x = pcm16_to_float(torch.from_numpy(to_pcm16(wave)).to(dev))
+        return log_mel_spectrogram(x, torch.from_numpy(lens).to(dev), n_mels=enc.dims.n_mels)
+
+    with torch.inference_mode():
+        memory, _, prompt, _ = encode(*mel(batch["speech"], batch["speech_lens"]),
+                                      *mel(batch["enroll"], batch["enroll_lens"]))
+    greedy_cfg = dataclasses.replace(d.dcfg, speculative_gamma=0)
+    for name, (t, dr) in (("bf16", (dec, draft)),
+                          ("f32", (copy.deepcopy(dec).float(), copy.deepcopy(draft).float()))):
+        g_tok, _ = build_beam_decoder(t, greedy_cfg, dev)(memory, prompt)
+        s_tok, _, st = build_speculative_decoder(t, d.dcfg, dev, return_stats=True,
+                                                 draft=dr)(memory, prompt)
+        share = (g_tok == s_tok).float().mean().item()
+        log(f"distilled-draft speculative vs 5-D greedy at medium, decoder {name}: identical "
+            f"token share {share:.4f}; greedy tokens per row "
+            f"{[len(r) for r in strip_eot(g_tok.cpu().tolist(), d.dcfg.eot)]}; counters "
+            f"{ {k: v.tolist() for k, v in st.items()} }")
+        if name == "f32" and not torch.equal(g_tok, s_tok):
+            raise AssertionError("f32 speculative tokens with the distilled draft differ from "
+                                 "the 5-D greedy's")
+        del t, dr
+    del enc, dec, draft, d, memory, prompt
+    torch.cuda.empty_cache()
+
+    # cli.serve with the draft
+    args = cli_serve.parse_args([
+        "--config", ENTRY_CONFIG, "--inference_config", os.path.join(root, "decode_beam1.yaml"),
+        "--expdir", exp_dir, "--batch_size", "4", "--max_wait_ms", "15", "--cross_kv_bits", "4",
+        "--tokenizer_assets", ENTRY_RANKS, "--device", str(dev), *spec,
+        "--draft_path", draft_dir,
+    ])
+    engine, serve_info = cli_serve.build_engine(args)
+    engine.warmup()
+    server, batcher = make_server(engine, "127.0.0.1", 0, args.max_wait_ms, info=serve_info)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    pairs = list(zip(list(wavs.values())[:4], list(enrolls.values())[:4]))
+    try:
+        answers, wall, counts = counted(torch, lambda: serve_requests(
+            server.server_address[1], [w for w, _ in pairs], [e for _, e in pairs]))
+    finally:
+        server.shutdown()
+        batcher.close()
+        server.server_close()
+        thread.join(timeout=30)
+    for (w, e), a in zip(pairs, answers):
+        with open(w, "rb") as f, open(e, "rb") as g:
+            want = engine.transcribe([(audio_from_bytes(f.read()), audio_from_bytes(g.read()))])[0]
+        if a["text"] != want:
+            raise AssertionError(f"cli.serve --draft_path: {a['text']!r} != engine {want!r}")
+    if not any(a["text"] for a in answers):
+        raise AssertionError("cli.serve --draft_path: every text is empty")
+    lat = sorted(a["latency_ms"] for a in answers)
+    log(f"cli.serve --draft_path on {info}: 4 requests in {wall:.2f} s, latency p50 "
+        f"{statistics.median(lat):.1f} ms max {lat[-1]:.1f} ms, texts equal "
+        f"engine.transcribe; launches {counts}")
+    expect("cli.serve --draft_path", counts)
+    report["cli.serve --draft_path"] = {"wall_s": wall, "p50_ms": statistics.median(lat)}
+    del engine
+    torch.cuda.empty_cache()
+
+    decode_cli("cli.decode --ctc_weight 0.3", argv(5, os.path.join(root, "ctc"), "--ctc_weight",
+                                                   "0.3"), 8)
+    _, _, ts_out = decode_cli("cli.decode --timestamps", argv(
+        1, os.path.join(root, "timestamps"), "--timestamps", "true"), 8)
+    if not os.path.exists(os.path.join(ts_out, "segments")):
+        raise AssertionError("--timestamps wrote no segments file")
+    with open(os.path.join(ts_out, "segments")) as f:
+        log(f"--timestamps: {len(f.readlines())} segments over 8 utterances")
+    long_dir, _, _ = write_data_dir(os.path.join(root, "long"), 4, seconds=75.0)
+    decode_cli("cli.decode --long_audio", argv(
+        1, os.path.join(root, "long_out"), "--long_audio", "true", data=long_dir), 4)
     report["phase_s"] = time.perf_counter() - t_phase
-    log(f"entry points on {gpu_info()}: {json.dumps(report)}")
+    log(f"remaining decode paths on {info}: {json.dumps(report)}")
     return launches
 
 
@@ -2122,11 +2480,13 @@ def main() -> int:
     rows = check_kernels(torch, dev, batch, max_new, beam)
     rows += check_flash_kernels(torch, dev)
     check_small_agreement(torch, dev)
+    check_small_remaining(torch, dev)
     check_small_training(torch, dev)
     models = medium_models(torch, dev)
     greedy_launches, greedy = run_main_path(torch, dev, models, batch, max_new)
     beam_launches, beam_run = run_beam_paths(torch, dev, models, batch, max_new)
     layout_launches = run_layout_paths(torch, dev, models, batch, max_new)
+    asr_launches = run_asr_paths(torch, dev, models, batch, max_new)
     entry_launches = run_entry_points(torch, dev)
     train_entry_launches, cli_rate = run_train_entry(torch, dev)
     train_launches, train_run, train_rates = run_train_paths(torch, dev)
@@ -2134,7 +2494,7 @@ def main() -> int:
         f"training wall) {cli_rate:.2f}, make_train_step in memory (lora, fastest step) "
         f"{train_rates['train lora']:.2f}")
     profile_runs(torch, greedy, beam_run, train_run)
-    by_path = {"greedy": greedy_launches, **beam_launches, **layout_launches,
+    by_path = {"greedy": greedy_launches, **beam_launches, **layout_launches, **asr_launches,
                **entry_launches, **train_entry_launches, **train_launches}
     for r in rows:  # launches on the path this row's kernel was ported for
         r["launches"] = by_path[OWN_PATH.get(r["name"], "greedy")][r["name"]]

@@ -14,8 +14,21 @@ The flags are the JAX package's ``cli.decode`` flags plus ``--device``
 cpu``). Weights come from the latest checkpoint under
 ``{expdir}/checkpoints`` (or its averaged ``ave`` subdirectory) in the
 port's format (``train/checkpoint.py``); with no checkpoint the model is
-the config's seeded random init. Paths the port does not have yet stop
-with a message naming their ROADMAP item.
+the config's seeded random init. Besides greedy and beam search:
+
+- ``--speculative_gamma G`` decodes speculatively with a self-draft of
+  ``--draft_layers`` blocks or, with ``--draft_path``, a distilled draft
+  (``cli.distill``);
+- ``--ctc_weight w`` runs joint CTC/attention beam search
+  (``decode/joint.py``) with the checkpoint's CTC head;
+- ``--timestamps true`` decodes Whisper timestamp tokens greedily and
+  writes a ``segments`` file beside ``text``;
+- ``--long_audio true`` decodes every utterance at full length in
+  ``--chunk_seconds`` windows (``decode/long_audio.py``).
+
+The flag combinations the JAX CLI refuses stop with its messages. Paths
+the port does not have yet (``UNSUPPORTED``) stop with a message naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,7 +37,7 @@ import argparse
 import dataclasses
 import logging
 import sys
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -32,18 +45,10 @@ import torch
 UNSUPPORTED = (
     ("--model_parallel", lambda a: a.model_parallel > 1,
      "tensor-parallel serving is ROADMAP A15 (multi-GPU)"),
-    ("--ctc_weight", lambda a: a.ctc_weight > 0,
-     "joint CTC/attention decode is ROADMAP A13 (decode extras)"),
-    ("--timestamps", lambda a: a.timestamps,
-     "timestamp decoding is ROADMAP A13 (decode extras)"),
-    ("--long_audio", lambda a: a.long_audio,
-     "long-audio windows are ROADMAP A13 (decode extras)"),
     ("--int8_weights", lambda a: a.int8_weights,
      "W8A8 step weights are ROADMAP A10"),
     ("--enroll_type", lambda a: a.enroll_type == "embedding",
      "embedding enrollment is ROADMAP A14"),
-    ("--draft_path", lambda a: bool(a.draft_path),
-     "loading a distilled draft (train/distill.py) is ROADMAP A item 3"),
 )
 
 
@@ -134,25 +139,52 @@ def load_exp(args) -> Any:
     )
 
 
-def decode_config(exp, args, **extra):
-    """The experiment's decode config with the flags' values, eot from the
-    model config and the init sequence: an explicit ``decode_conf.
+def init_tokens(exp, language: str, timestamps: bool = False) -> Tuple[int, ...]:
+    """The sequence a decode starts from: an explicit ``decode_conf.
     init_tokens`` wins (checkpoints trained by ``cli.train`` condition on
-    [sos; text]); otherwise the full Whisper sot sequence when the
-    vocabulary has it, else the bare sos."""
+    [sos; text]) unless ``timestamps``; otherwise the full Whisper sot
+    sequence when the vocabulary has it (without <|notimestamps|> for
+    ``timestamps``), else the bare sos."""
     from ..tokenizer.whisper_tokenizer import special_tokens_for_vocab
 
     st = special_tokens_for_vocab(exp.model.vocab_size)
-    if exp.decode_init_tokens_explicit:
-        init = exp.decode.init_tokens
-    elif exp.model.vocab_size >= st.n_vocab:
-        init = st.sot_sequence(args.language, "transcribe", True)
-    else:
-        init = (exp.model.sos,)
+    if exp.decode_init_tokens_explicit and not timestamps:
+        return tuple(exp.decode.init_tokens)
+    if exp.model.vocab_size >= st.n_vocab:
+        return tuple(st.sot_sequence(language, "transcribe", not timestamps))
+    return (exp.model.sos,)
+
+
+def open_dataset(exp, args, tokenizer):
+    """The Kaldi dir ``args.data_dir``, read as the JAX CLIs read it. The
+    JAX ``cli.decode`` and ``cli.distill`` draw one unshuffled batch of
+    ``args.batch_size`` to initialise their model, which moves the dataset's
+    enrollment picks and crops on; the same batch is drawn here, so that
+    both packages pick the same enrollments for one ``--seed``."""
+    from ..data.dataset import KaldiTSDataset
+
+    dataset = KaldiTSDataset(
+        args.data_dir, tokenizer,
+        speech_seconds=exp.speech_seconds, enroll_seconds=exp.enroll_seconds,
+        utt_style=exp.utt_style, seed=args.seed, enroll_type=exp.ts.enroll_type,
+    )
+    next(dataset.batches(args.batch_size, shuffle=False, drop_last=False))
+    return dataset
+
+
+def decode_config(exp, args, **extra):
+    """The experiment's decode config with the flags' values, eot from the
+    model config and ``init_tokens``' sequence."""
+    from ..tokenizer.whisper_tokenizer import special_tokens_for_vocab
+
+    st = special_tokens_for_vocab(exp.model.vocab_size)
+    ts = bool(getattr(args, "timestamps", False))
+    init = init_tokens(exp, args.language, ts)
     dcfg = dataclasses.replace(
         exp.decode,
         speculative_gamma=max(0, args.speculative_gamma),
         draft_layers=args.draft_layers,
+        with_timestamps=ts,
         timestamp_begin=st.timestamp_begin,
         eot=exp.model.eos,
         init_tokens=init,
@@ -186,6 +218,21 @@ def serving_weights(exp, args, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     return build_model(exp, args.seed, device="cpu").state_dict()
 
 
+def read_draft(args) -> Dict[str, torch.Tensor]:
+    """``--draft_path``'s state dict, on the host; ``args.draft_layers``
+    takes the draft's own depth from its meta."""
+    from ..train.distill import load_draft
+
+    sd, meta = load_draft(args.draft_path)
+    meta_d = int(meta.get("draft_layers", args.draft_layers))
+    if meta_d != args.draft_layers:
+        logging.info("--draft_layers %d -> %d (from the draft's meta)", args.draft_layers, meta_d)
+        args.draft_layers = meta_d
+    logging.info("distilled draft: %s (teacher step %s, agreement %s)",
+                 args.draft_path, meta.get("teacher_step"), meta.get("final_agreement"))
+    return sd
+
+
 @dataclasses.dataclass
 class Decoding:
     """What ``main`` decodes with, before any weights are read."""
@@ -197,6 +244,7 @@ class Decoding:
     tokenizer: Any
     device: torch.device
     dtype: torch.dtype
+    draft_sd: Optional[Dict[str, torch.Tensor]] = None  # --draft_path's weights
 
     def modules(self, state_dict: Dict[str, torch.Tensor]):
         from ..decode.pipeline import serving_modules
@@ -211,13 +259,21 @@ class Decoding:
             flat_self_cache=not spec,
         )
 
+    def draft(self, decoder):
+        """The ``--draft_path`` draft built like ``decoder`` (its cross K/V
+        width) in the compute dtype, or None."""
+        if self.draft_sd is None:
+            return None
+        from ..train.distill import build_draft
+
+        return build_draft(decoder, self.draft_sd, self.dtype)
+
 
 def prepare(argv=None) -> Decoding:
     """Parse ``argv`` and set up the decode: config, decode config, data
     and tokenizer. Raises without CUDA unless ``--device cpu``."""
     from .._device import resolve_device
-    from ..data.dataset import KaldiTSDataset
-    from ..tokenizer.whisper_tokenizer import load_tokenizer
+    from ..tokenizer.whisper_tokenizer import load_tokenizer, special_tokens_for_vocab
     from .train import compute_dtype
 
     parser = build_parser()
@@ -227,20 +283,56 @@ def prepare(argv=None) -> Decoding:
     exp = load_exp(args)
     if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
         logging.info("--data_parallel: decoding on one device (multi-GPU is ROADMAP A15)")
+    spec = max(0, args.speculative_gamma)
+    draft_sd = None
+    if args.draft_path:
+        if not spec:
+            parser.error("--draft_path requires --speculative_gamma > 0")
+        if args.long_audio:
+            parser.error("--draft_path is incompatible with --long_audio")
+        draft_sd = read_draft(args)
     dcfg = decode_config(
         exp, args,
         min_new_tokens=max(0, args.min_new_tokens),
+        ctc_decode_weight=max(0.0, args.ctc_weight),
         pre_beam=max(2, args.pre_beam),
         maxlenratio=max(0.0, args.maxlenratio),
         minlenratio=max(0.0, args.minlenratio),
     )
+    st = special_tokens_for_vocab(exp.model.vocab_size)
+    if dcfg.with_timestamps and exp.model.vocab_size < st.n_vocab:
+        parser.error(
+            "--timestamps needs the full Whisper vocabulary (the timestamp "
+            f"tokens start at id {st.timestamp_begin}); this checkpoint has "
+            f"vocab_size {exp.model.vocab_size}"
+        )
+    if dcfg.with_timestamps and (
+        exp.decode.beam_size > 1 or spec or args.long_audio or dcfg.ctc_decode_weight > 0
+    ):
+        parser.error(
+            "--timestamps is plain-greedy only: incompatible with beam "
+            "sizes > 1, --speculative_gamma, --long_audio and --ctc_weight "
+            "(the joint decoder applies no timestamp rules)"
+        )
+    if dcfg.ctc_decode_weight > 0:
+        if spec or args.long_audio:
+            parser.error(
+                "--ctc_weight joint decoding is the single-device plain "
+                "path: incompatible with --speculative_gamma, --long_audio "
+                "and --model_parallel"
+            )
+        # the joint scorer is the dense path: it reads no quantized cross K/V
+        if dcfg.quantize_cross_kv or dcfg.quantize_weights or dcfg.prefill_quantized:
+            logging.warning(
+                "--ctc_weight joint decoding runs fully dense; ignoring "
+                "--int8_weights/--prefill_quantized/quantized cross-KV"
+            )
+        dcfg = dataclasses.replace(
+            dcfg, quantize_cross_kv=False, quantize_weights=False, prefill_quantized=False,
+        )
     tokenizer = load_tokenizer(args.tokenizer_assets)
-    dataset = KaldiTSDataset(
-        args.data_dir, tokenizer,
-        speech_seconds=exp.speech_seconds, enroll_seconds=exp.enroll_seconds,
-        utt_style=exp.utt_style, seed=args.seed, enroll_type=exp.ts.enroll_type,
-    )
-    return Decoding(exp, args, dcfg, dataset, tokenizer, device, compute_dtype(exp))
+    dataset = open_dataset(exp, args, tokenizer)
+    return Decoding(exp, args, dcfg, dataset, tokenizer, device, compute_dtype(exp), draft_sd)
 
 
 def main(argv=None) -> int:
@@ -251,12 +343,27 @@ def main(argv=None) -> int:
 
     d = prepare(argv)
     logging.info("decoding %d utterances on %s", len(d.dataset), d.device)
-    encoder, decoder = d.modules(serving_weights(d.exp, d.args, d.dtype))
-    result = decode_dataset(
-        encoder, decoder, d.dataset, d.tokenizer, d.dcfg,
-        batch_size=d.args.batch_size, output_dir=d.args.output_dir,
-        enc_chunk=d.args.enc_chunk, device=d.device,
-    )
+    sd = serving_weights(d.exp, d.args, d.dtype)
+    encoder, decoder = d.modules(sd)
+    ctc_lo = None
+    if d.dcfg.ctc_decode_weight > 0:  # the checkpoint's CTC head
+        ctc_lo = (sd["ctc.ctc_lo.weight"], sd["ctc.ctc_lo.bias"])
+    del sd
+    if d.args.long_audio:
+        from ..decode.long_audio import decode_dataset_long
+
+        result = decode_dataset_long(
+            encoder, decoder, d.dataset, d.tokenizer, d.dcfg,
+            chunk_seconds=d.args.chunk_seconds, output_dir=d.args.output_dir,
+            window_batch=d.args.batch_size, device=d.device,
+        )
+    else:
+        result = decode_dataset(
+            encoder, decoder, d.dataset, d.tokenizer, d.dcfg,
+            batch_size=d.args.batch_size, output_dir=d.args.output_dir,
+            enc_chunk=d.args.enc_chunk, device=d.device, draft=d.draft(decoder),
+            ctc_lo=ctc_lo,
+        )
     logging.info(
         "decoded %d utts in %.1fs (RTF %.1fx): %s",
         len(result.hyps), result.wall_seconds, result.rtf,

@@ -12,6 +12,8 @@ Usage::
 
 The flags are the JAX package's ``cli.serve`` flags plus ``--device``
 (default ``cuda``); the weights come as in ``cli.decode``.
+``--speculative_gamma G`` serves by speculative greedy decode, with a
+self-draft or, with ``--draft_path``, a distilled draft (``cli.distill``).
 ``build_engine(args)`` builds the ``TranscriptionEngine`` without serving,
 so a caller can put ``serve.server.make_server`` over it in its own thread.
 """
@@ -24,7 +26,7 @@ import logging
 from .decode import UNSUPPORTED, check_supported, str2bool
 
 SERVE_UNSUPPORTED = tuple(u for u in UNSUPPORTED if u[0] in (
-    "--model_parallel", "--int8_weights", "--draft_path",
+    "--model_parallel", "--int8_weights",
 )) + (
     ("--compile_cache", lambda a: bool(a.compile_cache),
      "a persistent XLA compilation cache has no counterpart here (the "
@@ -87,6 +89,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = build_parser()
     args = parser.parse_args(argv)
     check_supported(parser, args, SERVE_UNSUPPORTED)
+    if args.draft_path and max(0, args.speculative_gamma) == 0:
+        parser.error("--draft_path requires --speculative_gamma > 0")
     return args
 
 
@@ -97,11 +101,12 @@ def build_engine(args: argparse.Namespace):
     from ..decode.pipeline import serving_modules
     from ..serve.engine import EngineConfig, TranscriptionEngine
     from ..tokenizer.whisper_tokenizer import load_tokenizer
-    from .decode import decode_config, load_exp, serving_weights
+    from .decode import decode_config, load_exp, read_draft, serving_weights
     from .train import compute_dtype
 
     device = resolve_device(args.device)
     exp = load_exp(args)
+    draft_sd = read_draft(args) if args.draft_path else None
     dcfg = decode_config(exp, args, quantize_cross_kv=args.quantize_cross_kv)
     if dcfg.speculative_gamma and dcfg.beam_size > 1:
         raise ValueError(
@@ -116,13 +121,18 @@ def build_engine(args: argparse.Namespace):
         # speculative decode needs the 5-D cache's per-row writes
         flat_self_cache=not dcfg.speculative_gamma,
     )
+    draft = None
+    if draft_sd is not None:  # built like the target, in the compute dtype
+        from ..train.distill import build_draft
+
+        draft = build_draft(decoder, draft_sd, dtype)
     engine = TranscriptionEngine(
         encoder, decoder, load_tokenizer(args.tokenizer_assets), dcfg,
         EngineConfig(
             batch_size=args.batch_size, speech_seconds=exp.speech_seconds,
             enroll_seconds=exp.enroll_seconds, enc_chunk=args.enc_chunk,
         ),
-        device=device,
+        draft=draft, device=device,
     )
     return engine, {"config": args.config, "beam_size": dcfg.beam_size}
 

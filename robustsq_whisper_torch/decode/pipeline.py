@@ -7,13 +7,16 @@ loop's valid WER (``train/eval.py::ValidWer``) all serve through it.
 Mirrors the single-device Qformer case of the JAX package's
 ``decode/pipeline.py``. ``build_decode_fns``: greedy or beam search as
 ``DecodeConfig.beam_size`` says (``run`` returns the best beam of each
-utterance), or speculative greedy decode when ``speculative_gamma > 0``
+utterance), speculative greedy decode when ``speculative_gamma > 0``
 (``run`` then also returns the draft-acceptance counters, and ``draft``
-may give a separate draft decoder). ``decode_dataset`` runs a
-``KaldiTSDataset`` through them batch by batch and ``score_and_write``
-writes the ESPnet-style ``text`` (hypotheses) and ``score.txt``. Mesh
-serving (data or tensor parallel), joint CTC and embedding enrollment are
-later slices and raise ``NotImplementedError``.
+may give a separate draft decoder, e.g. a distilled one), or joint
+CTC/attention beam search when ``ctc_decode_weight > 0`` (``ctc_lo`` the
+CTC head; ``run`` then takes the encoder lengths too). ``decode_dataset``
+runs a ``KaldiTSDataset`` through them batch by batch (with
+``with_timestamps`` it also writes the ``segments`` file) and
+``score_and_write`` writes the ESPnet-style ``text`` (hypotheses) and
+``score.txt``. Mesh serving (data or tensor parallel) and embedding
+enrollment are later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,9 +35,11 @@ from ..audio.frontend import log_mel_spectrogram, pcm16_to_float, to_pcm16
 from ..data import kaldi_io
 from ..models.ts_decoder import TSDecoder
 from ..models.ts_encoder import QFormerTSEncoder
+from ..models.whisper.modules import AudioEncoder
 from .scorer import cer, wer
 from .search import DecodeConfig, build_beam_decoder, strip_eot
 from .speculative import build_speculative_decoder
+from .timestamps import segments_from_tokens
 
 logger = logging.getLogger("robustsq_whisper_torch.decode")
 
@@ -103,21 +108,37 @@ def build_decode_fns(
     mesh: Optional[Any] = None,
     device="cuda",
     draft: Optional[TSDecoder] = None,
+    ctc_lo: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
     """``(encode, run)``: ``encode(mel, flens, emel, elens)`` returns the
     encoder 4-tuple, ``run(memory, spk_prompt)`` returns (tokens, scores[,
-    stats]). Moves the modules to ``device``."""
-    if draft is not None and not (dcfg.speculative_gamma > 0 and mesh is None):
+    stats]); the joint decoder's is ``run(memory, spk_prompt, mem_lens)``.
+    ``ctc_lo``: the CTC head's (weight, bias), which joint decode needs.
+    Moves the modules to ``device``."""
+    if draft is not None and not (
+        dcfg.speculative_gamma > 0 and mesh is None and dcfg.ctc_decode_weight == 0
+    ):
         raise ValueError(
             "a draft decoder requires the single-device speculative path: "
-            "speculative_gamma > 0 and no mesh"
+            "speculative_gamma > 0, no mesh, no joint CTC"
         )
     if mesh is not None:
         raise NotImplementedError("multi-GPU serving is ROADMAP A15")
     if not isinstance(encoder, QFormerTSEncoder):
         raise NotImplementedError("embedding enrollment is ROADMAP A14")
     dev = resolve_device(device)
-    if dcfg.speculative_gamma > 0:
+    if dcfg.ctc_decode_weight > 0:
+        if ctc_lo is None:
+            raise ValueError(
+                "ctc_decode_weight > 0 needs the CTC head weights: pass "
+                "ctc_lo=(weight, bias) (the model's ctc.ctc_lo)"
+            )
+        from .joint import build_joint_beam_decoder
+
+        run = build_joint_beam_decoder(
+            decoder, ctc_lo, dcfg, prompt_frames=encoder.prompt_len, device=dev
+        )
+    elif dcfg.speculative_gamma > 0:
         # the acceptance counters say whether speculation pays on these weights
         run = build_speculative_decoder(
             decoder, dcfg, dev, return_stats=True, draft=draft
@@ -143,6 +164,8 @@ def decode_dataset(
     output_dir: Optional[str] = None,
     enc_chunk: int = 0,
     device="cuda",
+    draft: Optional[TSDecoder] = None,
+    ctc_lo: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> DecodeResult:
     """Decode every utterance of ``dataset`` and score it against its
     ``text``.
@@ -153,12 +176,15 @@ def decode_dataset(
     ``run`` syncs with the host at every decode step (ROADMAP D5), so the
     device has finished batch i before the host goes on."""
     dev = resolve_device(device)
-    encode, run = build_decode_fns(encoder, decoder, dcfg, device=dev)
+    encode, run = build_decode_fns(
+        encoder, decoder, dcfg, device=dev, draft=draft, ctc_lo=ctc_lo
+    )
     if enc_chunk < 0:
         raise ValueError(f"enc_chunk must be >= 0, got {enc_chunk}")
 
     hyps: Dict[str, str] = {}
     refs: Dict[str, str] = {}
+    segments: Dict[str, list] = {}
     spec_totals = np.zeros(3, np.int64)  # chunks, accepted, emitted
     audio_sec = 0.0
     t0 = time.time()
@@ -174,6 +200,9 @@ def decode_dataset(
             if utt in hyps:  # drop_last=False wraps; skip duplicates
                 continue
             ids = strip_eot(tokens[i : i + 1], dcfg.eot)[0]
+            if dcfg.with_timestamps:
+                segments[utt] = segments_from_tokens(ids, tokenizer, dcfg.timestamp_begin)
+                ids = [t for t in ids if t < dcfg.timestamp_begin]
             hyps[utt] = tokenizer.decode(ids).strip()
             refs[utt] = dataset.text.get(utt, "")
             audio_sec += float(speech_lens[i]) / dataset.sample_rate
@@ -197,7 +226,17 @@ def decode_dataset(
             memory, spk_prompt = chunked_encode(
                 encode, feats, feats_lens, efeats, efeats_lens, enc_chunk
             )
-            res = run(memory, spk_prompt)
+            if dcfg.ctc_decode_weight > 0:
+                # encoder lengths with the prompt frames, as the encoder's
+                # own: the joint scorer masks the frames beyond each
+                # utterance and bounds its length by them
+                prompt_frames = encoder.prompt_len
+                mem_lens = AudioEncoder.output_lengths(
+                    feats_lens, memory.shape[1] - prompt_frames
+                ) + prompt_frames
+                res = run(memory, spk_prompt, mem_lens)
+            else:
+                res = run(memory, spk_prompt)
             tokens, stats = res[0], (res[2] if len(res) == 3 else None)
             if pending is not None:
                 consume(pending)
@@ -223,6 +262,12 @@ def decode_dataset(
             100 * extra["spec_acceptance_rate"], extra["spec_tokens_per_chunk"],
             dcfg.speculative_gamma, dcfg.draft_layers,
         )
+    if segments and output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+        with open(os.path.join(output_dir, "segments"), "w") as f:
+            for utt in sorted(segments):
+                for s0, s1, text in segments[utt]:
+                    f.write(f"{utt} {s0:.2f} {s1:.2f} {text}\n")
     return score_and_write(hyps, refs, audio_sec, wall, output_dir, extra)
 
 

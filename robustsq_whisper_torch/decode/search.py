@@ -26,7 +26,12 @@ JAX package's: summed log-probs, finished beams frozen on eot at zero
 cost, ties in the top-k broken towards the lower flat index as
 ``jax.lax.top_k`` does.
 
-Timestamps, joint CTC and W8A8 step weights are later slices and raise
+With ``with_timestamps`` the greedy loop masks each step's logits by
+the Whisper timestamp rules (``decode/timestamps.py``), as the JAX greedy
+decoder does; beam search and speculative decode refuse it. Joint
+CTC/attention decode is ``decode/joint.py`` (``build_decode_fns`` routes
+``ctc_decode_weight > 0`` there); these builders refuse it rather than
+decode attention-only. W8A8 step weights are a later slice and raise
 ``NotImplementedError``.
 """
 
@@ -41,6 +46,7 @@ import torch
 from .._device import resolve_device
 from ..models.ts_decoder import TSDecoder
 from ..ops.beam_gather import CHUNK, beam_reorder_cache
+from .timestamps import apply_timestamp_rules, update_timestamp_state
 
 NEG = -1e30  # score of a dead beam and of a masked token
 
@@ -99,10 +105,16 @@ def length_bounds_static(cfg: DecodeConfig, enc_t: int) -> Tuple[int, int]:
 def _check_config(dec: TSDecoder, cfg: DecodeConfig) -> None:
     """Raise for the paths outside this port, before anything runs."""
     dec.check_self_cache()
-    if cfg.with_timestamps:
-        raise NotImplementedError("timestamp decoding is ROADMAP A13")
     if cfg.ctc_decode_weight > 0:
-        raise NotImplementedError("joint CTC/attention decode is ROADMAP A13")
+        raise ValueError(
+            "ctc_decode_weight > 0 decodes through decode/joint.py "
+            "(build_decode_fns with the CTC head), not the attention-only decoders"
+        )
+    if cfg.with_timestamps and cfg.timestamp_begin >= dec.dims.n_vocab:
+        raise ValueError(
+            "timestamp decoding needs the timestamp tokens (from id "
+            f"{cfg.timestamp_begin}) in the vocabulary of {dec.dims.n_vocab}"
+        )
     if cfg.quantize_weights:
         raise NotImplementedError("W8A8 step weights are ROADMAP A10")
     if cfg.prefill_quantized and not cfg.quantize_cross_kv:
@@ -157,9 +169,18 @@ def build_greedy_decoder(
         done = torch.zeros(b, dtype=torch.bool, device=dev)
         score = torch.zeros(b, dtype=torch.float32, device=dev)
         tokens = torch.full((b, max_new), cfg.eot, dtype=torch.int32, device=dev)
+        if cfg.with_timestamps:  # last token, the one before, largest timestamp
+            ts_state = (torch.full((b,), -1, dtype=torch.int64, device=dev),
+                        torch.full((b,), -1, dtype=torch.int64, device=dev),
+                        torch.full((b,), cfg.timestamp_begin, dtype=torch.int64, device=dev))
         for i in range(max_new):
             if i < min_new:
                 logits[:, cfg.eot] = -1e30
+            if cfg.with_timestamps:
+                logits = apply_timestamp_rules(
+                    logits.float(), *ts_state, cfg.timestamp_begin, cfg.eot,
+                    cfg.max_initial_timestamp_index,
+                )
             logp = torch.log_softmax(logits, dim=-1)
             tok = torch.argmax(logp, dim=-1)
             tok = torch.where(done, cfg.eot, tok)
@@ -167,6 +188,10 @@ def build_greedy_decoder(
             score = score + torch.where(done, 0.0, tok_logp)
             done = done | (tok == cfg.eot)
             tokens[:, i] = tok
+            if cfg.with_timestamps:
+                ts_state = update_timestamp_state(
+                    tok, ts_state[0], ts_state[2], cfg.timestamp_begin
+                )
             if i + 1 == max_new or (cfg.stop_early and bool(done.all())):
                 break  # the next step's logits would go unused
             logits, cache = dec.step(tok[:, None], pos, cache, cross)

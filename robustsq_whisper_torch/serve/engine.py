@@ -7,7 +7,8 @@ row 0 and are dropped on the host. Audio is staged to the device as int16
 by default (half the bytes of f32, exact for WAV/FLAC-sourced audio). A
 DecodeConfig with ``speculative_gamma > 0`` serves by speculative greedy
 decode, self-drafting or with a separate ``draft`` decoder (the JAX
-engine's ``draft_vars``, converted with ``convert.load_flax``).
+engine's ``draft_vars``): a distilled one (``train/distill.py``,
+``cli.serve --draft_path``) or a converted JAX draft.
 """
 
 from __future__ import annotations

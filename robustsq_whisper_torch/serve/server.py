@@ -11,7 +11,7 @@ batch; an idle server adds at most ``max_wait_ms``.
 API (JSON over POST):
 
   POST /v1/transcribe
-    {"speech_wav": <base64 WAV bytes>, "enroll_wav": <...>}
+    {"speech_wav": <base64 WAV/FLAC bytes>, "enroll_wav": <...>}
     or raw PCM: {"speech_pcm": [floats @16k], "enroll_pcm": [...]}
     -> {"text": "...", "latency_ms": 12.3}
   GET /healthz -> {"status": "ok", ...}

@@ -39,7 +39,7 @@ _MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class OptimConfig:
     lr: float = 5e-5
     warmup_steps: int = 1500
-    schedule: str = "warmuplr"  # warmuplr | linear | constant
+    schedule: str = "warmuplr"  # warmuplr | linear | constant | warmup_cosine
     total_steps: int = 100_000
     weight_decay: float = 0.0
     betas: tuple = (0.9, 0.98)
@@ -68,7 +68,25 @@ def make_schedule(cfg: OptimConfig) -> Callable[[int], float]:
         return sched
     if cfg.schedule == "constant":
         return lambda n: float(f32(cfg.lr))
-    raise ValueError(f"schedule must be warmuplr|linear|constant, got {cfg.schedule}")
+    if cfg.schedule == "warmup_cosine":
+        # optax.warmup_cosine_decay_schedule(0, lr, warmup, total)
+        warmup, decay = cfg.warmup_steps, cfg.total_steps - cfg.warmup_steps
+        if decay <= 0:
+            raise ValueError(f"the cosine decay needs total_steps > warmup_steps, got "
+                             f"{cfg.total_steps} and {warmup}")
+
+        def sched(n: int) -> float:
+            if n < warmup:  # linear from 0 to lr
+                frac = f32(1) - f32(min(max(n, 0), warmup)) / f32(warmup)
+                return float(f32(0.0 - cfg.lr) * frac + f32(cfg.lr))
+            count = f32(min(n - warmup, decay))
+            cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * count / f32(decay)))
+            return float(f32(cfg.lr) * cosine)
+
+        return sched
+    raise ValueError(
+        f"schedule must be warmuplr|linear|constant|warmup_cosine, got {cfg.schedule}"
+    )
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

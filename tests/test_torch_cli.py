@@ -7,8 +7,13 @@ JAX ``restore_weights``, mapped with ``convert.flax_to_state_dict`` and
 saved with the port's ``save_checkpoint``. Then both CLIs decode the data
 dir with the beam-1 inference yaml and the mini BPE ranks: the ``text``
 files must be identical and every ``score.txt`` metric equal but the
-real-time factor, greedy and speculative (with the same draft-acceptance
-counters)."""
+real-time factor, greedy, speculative with a self-draft and with a
+distilled draft (the same draft-acceptance counters), joint CTC/attention
+at beam 3 and long-audio windows. The JAX ``cli.distill`` writes the
+distilled draft; the port's copy of it is JAX's ``load_draft``, mapped with
+``convert.flax_to_state_dict`` and saved with the port's ``save_draft``.
+The port's own ``cli.distill`` on the same checkpoint must give JAX's
+draft weights."""
 
 import os
 import shutil
@@ -63,6 +68,31 @@ def trained(tmp_path_factory):
     return dict(tmp=tmp, data_dir=data_dir, config=config, jexp=jexp, pexp=pexp)
 
 
+@pytest.fixture(scope="module")
+def drafts(trained):
+    """The JAX ``cli.distill`` draft of the trained checkpoint, the port's
+    copy of it, and the port's ``cli.distill`` draft of the same
+    checkpoint (5 steps over 4 utterances)."""
+    from robustsq_whisper_tpu.cli import distill as jdistill_cli
+    from robustsq_whisper_tpu.train.distill import load_draft as j_load_draft
+    from robustsq_whisper_torch.cli import distill as pdistill_cli
+    from robustsq_whisper_torch.convert import flax_to_state_dict
+    from robustsq_whisper_torch.train.distill import save_draft
+
+    t = trained
+    argv = lambda expdir, out: [
+        "--config", t["config"], "--expdir", expdir, "--data_dir", t["data_dir"],
+        "--out", out, "--tokenizer_assets", RANKS, "--draft_layers", "1", "--steps", "5",
+        "--max_items", "4", "--batch_size", "4", "--max_new_tokens", "8",
+    ]
+    jdraft, pdraft = str(t["tmp"] / "jdraft"), str(t["tmp"] / "pdraft")
+    assert jdistill_cli.main(argv(t["jexp"], jdraft)) == 0
+    assert pdistill_cli.main(argv(t["pexp"], pdraft) + ["--device", "cpu"]) == 0
+    jvars, jmeta = j_load_draft(jdraft)
+    copy = save_draft(str(t["tmp"] / "jdraft_port"), flax_to_state_dict(jvars), jmeta)
+    return dict(jax=jdraft, port=pdraft, copy=copy, jvars=jvars, jmeta=jmeta)
+
+
 def _argv(t, expdir, out, *extra):
     return [
         "--config", t["config"], "--inference_config", BEAM1, "--data_dir", t["data_dir"],
@@ -76,18 +106,48 @@ def _scores(out):
         return dict(line.split() for line in f)
 
 
-@pytest.mark.parametrize(
-    "extra", [(), ("--speculative_gamma", "2", "--draft_layers", "1")],
-    ids=["greedy", "speculative"],
-)
-def test_decode_equals_jax_cli(trained, extra):
+CASES = {
+    "greedy": (),
+    "speculative": ("--speculative_gamma", "2", "--draft_layers", "1"),
+    "ctc-beam3": ("--ctc_weight", "0.3", "--inference_config", "{beam3}"),
+    # windows of the config's 0.64 s, so each utterance spans several
+    "long-audio": ("--long_audio", "true", "--chunk_seconds", "0.64"),
+    # the default 30 s windows: one a second-long utterance, mostly padding,
+    # and 200-token rows whose close margins show any difference in the
+    # enrollments the two CLIs draw
+    "long-audio-30s": ("--long_audio", "true"),
+    "draft": ("--speculative_gamma", "2", "--draft_path", "{draft}"),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES), ids=list(CASES))
+def test_decode_equals_jax_cli(trained, request, monkeypatch, case):
+    import jax
+
     from robustsq_whisper_tpu.cli import decode as jdecode
+    from robustsq_whisper_tpu.train import checkpoint as jckpt
     from robustsq_whisper_torch.cli import decode as pdecode
 
     t = trained
-    jout, pout = (str(t["tmp"] / f"{k}_{len(extra)}") for k in ("jdec", "pdec"))
-    assert jdecode.main(_argv(t, t["jexp"], jout, *extra)) == 0
-    assert pdecode.main(_argv(t, t["pexp"], pout, "--device", "cpu", *extra)) == 0
+    if case == "draft":
+        # The JAX serving restore leaves the buffers on every device they
+        # were saved from (eight virtual CPU devices here) while the draft
+        # goes to one, and the JAX draft path is single-device: keep the
+        # restored weights on one device, as on a one-chip host.
+        restore = jckpt.restore_serving_variables
+        monkeypatch.setattr(jckpt, "restore_serving_variables", lambda *a, **kw: (
+            lambda v, *rest: (jax.device_put(v, jax.devices()[0]), *rest))(*restore(*a, **kw)))
+    beam3 = str(t["tmp"] / "beam3.yaml")
+    with open(beam3, "w") as f:
+        f.write("decode_conf:\n  beam_size: 3\n  max_new_tokens: 8\n")
+    drafts = request.getfixturevalue("drafts") if case == "draft" else {}
+
+    def extra(side):
+        return [a.format(beam3=beam3, draft=drafts.get(side, "")) for a in CASES[case]]
+
+    jout, pout = (str(t["tmp"] / f"{k}_{case}") for k in ("jdec", "pdec"))
+    assert jdecode.main(_argv(t, t["jexp"], jout, *extra("jax"))) == 0
+    assert pdecode.main(_argv(t, t["pexp"], pout, "--device", "cpu", *extra("copy"))) == 0
     with open(os.path.join(jout, "text")) as f, open(os.path.join(pout, "text")) as g:
         jtext, ptext = f.read(), g.read()
     assert ptext == jtext
@@ -97,8 +157,34 @@ def test_decode_equals_jax_cli(trained, extra):
     assert ps.pop("rtf") and js.pop("rtf")
     assert ps == js
     assert {"wer", "cer"} <= ps.keys()
-    if extra:
+    if "--speculative_gamma" in CASES[case]:
         assert float(ps["spec_chunks"]) > 0
+
+
+def test_distill_equals_jax_cli(drafts):
+    """The port's ``cli.distill`` on the checkpoint JAX distilled from: the
+    same corpus and meta (the checkpoint's own path aside; the loss to
+    1e-5) and the same draft weights, each within 1e-5 of JAX's (the bound
+    ``test_torch_distill.py`` holds ``distill_draft`` to): the two CLIs
+    draw the same enrollments, and the frontends' f32 rounding moves no
+    weight that far. The frozen embeddings are the teacher's, exactly."""
+    from robustsq_whisper_torch.convert import flax_to_state_dict
+    from robustsq_whisper_torch.train.distill import load_draft
+
+    sd, meta = load_draft(drafts["port"])
+    want = flax_to_state_dict(drafts["jvars"])
+    assert sd.keys() == want.keys()
+    for k, v in sd.items():
+        if ".blocks." in k or ".ln." in k:  # the trained weights
+            assert float((v - want[k]).abs().max()) <= 1e-5, k
+        else:
+            assert torch.equal(v, want[k]), k
+    jmeta = dict(drafts["jmeta"])
+    assert meta.pop("teacher_ckpt").endswith("pexp/checkpoints")
+    assert jmeta.pop("teacher_ckpt").endswith("jexp/checkpoints")
+    assert meta.keys() == jmeta.keys() and meta["corpus_items"] == 4
+    for k, v in meta.items():
+        assert v == pytest.approx(jmeta[k], abs=1e-5 if k == "final_loss" else 0), k
 
 
 def test_decode_from_random_init_and_ave(trained, tmp_path):
@@ -135,12 +221,8 @@ def test_decode_from_random_init_and_ave(trained, tmp_path):
     "flag,value,item",
     [
         ("--model_parallel", "2", "A15"),
-        ("--ctc_weight", "0.3", "A13"),
-        ("--timestamps", "true", "A13"),
-        ("--long_audio", "true", "A13"),
         ("--int8_weights", "true", "A10"),
         ("--enroll_type", "embedding", "A14"),
-        ("--draft_path", "/nonexistent", "item 3"),
     ],
 )
 def test_unsupported_flags_stop(flag, value, item, capsys):
@@ -159,10 +241,76 @@ def test_serve_unsupported_flags_stop(capsys):
     from robustsq_whisper_torch.cli import serve as pserve
 
     for flag, value in (("--compile_cache", "/tmp/x"), ("--model_parallel", "2"),
-                        ("--int8_weights", "true"), ("--draft_path", "/x")):
+                        ("--int8_weights", "true")):
         with pytest.raises(SystemExit):
             pserve.parse_args(["--config", CONFIG, flag, value])
         assert flag in capsys.readouterr().err
+
+
+MEDIUM = os.path.join(REPO, "conf/tswhisper/train_tsasr_whisper_medium_lora_qkvo_r16_.yaml")
+CONFLICTS = {  # name: (config, flags, the start of the JAX message)
+    "draft-no-gamma": (CONFIG, ("--draft_path", "/x"),
+                       "--draft_path requires --speculative_gamma > 0"),
+    "draft-long-audio": (CONFIG, ("--draft_path", "/x", "--speculative_gamma", "2",
+                                  "--long_audio", "true"),
+                         "--draft_path is incompatible with --long_audio"),
+    "timestamps-vocab": (CONFIG, ("--timestamps", "true"),
+                         "--timestamps needs the full Whisper vocabulary"),
+    "timestamps-speculative": (MEDIUM, ("--timestamps", "true", "--speculative_gamma", "2"),
+                               "--timestamps is plain-greedy only"),
+    "timestamps-ctc": (MEDIUM, ("--timestamps", "true", "--ctc_weight", "0.3"),
+                       "--timestamps is plain-greedy only"),
+    "ctc-speculative": (CONFIG, ("--ctc_weight", "0.3", "--speculative_gamma", "2"),
+                        "--ctc_weight joint decoding is the single-device plain path"),
+    "ctc-long-audio": (CONFIG, ("--ctc_weight", "0.3", "--long_audio", "true"),
+                       "--ctc_weight joint decoding is the single-device plain path"),
+}
+
+
+def _jax_messages():
+    """The messages of the JAX ``cli.decode``'s and ``cli.serve``'s
+    ``parser.error`` calls, f-strings cut at their first field."""
+    import ast
+    import inspect
+
+    from robustsq_whisper_tpu.cli import decode as jdecode
+    from robustsq_whisper_tpu.cli import serve as jserve
+
+    out = []
+    for mod in (jdecode, jserve):
+        for node in ast.walk(ast.parse(inspect.getsource(mod))):
+            if (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "error"
+                    and node.args):
+                arg = node.args[0]
+                if isinstance(arg, ast.JoinedStr):
+                    arg = arg.values[0]
+                out.append(arg.value)
+    return out
+
+
+@pytest.mark.parametrize("name", list(CONFLICTS))
+def test_flag_conflicts_stop_with_jax_messages(name, capsys):
+    """The four flags this port serves stop on the combinations the JAX
+    CLI refuses, before any weights are read, with the JAX message."""
+    from robustsq_whisper_torch.cli import decode as pdecode
+
+    config, flags, start = CONFLICTS[name]
+    with pytest.raises(SystemExit) as e:
+        pdecode.main(["--config", config, "--data_dir", "/nonexistent", "--output_dir",
+                      "/nonexistent", "--device", "cpu", *flags])
+    assert e.value.code == 2
+    msg = capsys.readouterr().err.strip().splitlines()[-1].split("error: ", 1)[1]
+    assert msg.startswith(start)
+    assert any(msg.startswith(m) for m in _jax_messages()), msg
+
+
+def test_serve_draft_path_needs_gamma(capsys):
+    from robustsq_whisper_torch.cli import serve as pserve
+
+    with pytest.raises(SystemExit):
+        pserve.parse_args(["--config", CONFIG, "--draft_path", "/x"])
+    msg = capsys.readouterr().err.strip().splitlines()[-1].split("error: ", 1)[1]
+    assert msg == "--draft_path requires --speculative_gamma > 0" and msg in _jax_messages()
 
 
 def test_cli_needs_cuda_unless_device_cpu(trained, monkeypatch, tmp_path):

@@ -80,11 +80,20 @@ def test_default_device_raises_without_cuda(monkeypatch):
     [dict(with_timestamps=True), dict(ctc_decode_weight=0.3), dict(quantize_weights=True)],
 )
 def test_paths_outside_the_slice_raise(change):
-    """Paths of later slices raise NotImplementedError naming their ROADMAP
-    item when the engine is built; none runs a silent substitute."""
+    """A path the engine cannot serve raises when the engine is built; none
+    runs a silent substitute. W8A8 step weights are a later slice
+    (NotImplementedError naming its ROADMAP item); timestamp decoding needs
+    the timestamp tokens in the vocabulary (here 50 ids); joint CTC decode
+    needs the CTC head, which the engine does not take (nor does the JAX
+    package's)."""
     dims = WhisperDims(n_text_state=128, n_text_head=2, n_text_layer=1, n_vocab=50)
     enc = QFormerTSEncoder(dims, TSEncoderConfig(num_hidden_layers=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    error, match = {
+        "with_timestamps": (ValueError, "timestamp tokens"),
+        "ctc_decode_weight": (ValueError, "CTC head"),
+        "quantize_weights": (NotImplementedError, "ROADMAP A10"),
+    }[next(iter(change))]
+    with pytest.raises(error, match=match):
         TranscriptionEngine(
             enc, TSDecoder(dims), ByteTokenizer(), DecodeConfig(**change),
             device="cpu",
