@@ -95,6 +95,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    audio-s per GPU-s through the CLI (beside the in-memory step's, after
    phase 5), the validation, valid-WER, checkpoint save, restore and
    averaging seconds, the peak memory and the launches;
+4e. the data stages and embedding enrollment (``run_embedding_enrollment``):
+   first a small embedding-enrollment model decodes greedy and at beam 3
+   on the card and on the CPU to the same tokens; then ``cli.datapre``
+   writes a synthetic corpus (8 speakers x 4 utterances of 30 s), 16
+   overlaps at SIR in [-5, 5] dB, WHAM!-style noise at SNR in [10, 20] dB
+   over 4 synthetic noise WAVs, ``enroll-json``, an 8-utterance eval dir
+   of concrete ``enroll-scp`` rows, ``num-samples``, ``fix`` and
+   ``validate`` (each subcommand's wall printed); ``spk-embed`` runs the
+   seeded ResNet34 at its published widths on the card at batch 16 over
+   both dirs (utterances/s printed), and 4 embeddings on the card must
+   match the CPU's (cosine >= 0.999, f32 without TF32); ``cli.train
+   --enroll_type embedding`` trains the medium lora config 4 steps at
+   batch 8 with validation and valid WER (audio-s per GPU-s and peak
+   memory printed); ``cli.decode --enroll_type embedding`` decodes the
+   eval dir greedy and at beam 5 (int4 cross K/V, 32 new tokens) and with
+   ``--ctc_weight 0.3``: each run's launches are counted, the rows of
+   ``EMBED_PATHS`` must launch and the flash rows must not (the embedding
+   encoder's attention is plain, as the JAX package's), and the RTFs are
+   printed;
 5. training: the three flash-attention training kernels (forward, dQ,
    dK/dV) against their plain versions at the medium training shape
    (batch 8 x 16 heads, T = 1500 + 16, bf16) and with a mask at a smaller
@@ -1454,7 +1473,7 @@ def run_main_path(torch, dev, models, batch: int, max_new: int):
         torch.cuda.synchronize()
         times["frontend"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        memory, prompt = chunked_encode(engine.encode, *staged, 0)
+        memory, prompt = chunked_encode(engine.encode, staged, 0)
         torch.cuda.synchronize()
         times["encode"] = time.perf_counter() - t0
         with torch.inference_mode():
@@ -1523,7 +1542,7 @@ def run_beam_paths(torch, dev, models, batch: int, max_new: int):
     staged = engines["beam 5 eager"].stage(items)
     outs = {}
     for path, engine in engines.items():
-        memory, prompt = chunked_encode(engine.encode, *staged, 0)
+        memory, prompt = chunked_encode(engine.encode, staged, 0)
         tokens, scores = engine.run(memory, prompt)
         outs[path] = (tokens.cpu(), scores.cpu())
     (t_e, s_e), (t_d, s_d) = outs.values()
@@ -1580,7 +1599,7 @@ def run_layout_paths(torch, dev, models, batch: int, max_new: int):
     for path, (flags, cfg, expect) in LAYOUT_PATHS.items():
         engine = engine_for(torch, dev, enc, decoder_with(dec, **flags), batch, max_new, **cfg)
         _, launches[path] = counted_transcribe(torch, engine, items, path, expect)
-    memory, prompt = chunked_encode(engine.encode, *engine.stage(items), 0)
+    memory, prompt = chunked_encode(engine.encode, engine.stage(items), 0)
     dcfg = engine.dcfg
     greedy_cfg = dataclasses.replace(dcfg, speculative_gamma=0)
     for name, d in (("bf16", dec), ("f32", copy.deepcopy(dec).float())):
@@ -2037,8 +2056,8 @@ def run_remaining_paths(torch, dev, root, data_dir, wavs, enrolls, memory_sd):
         return log_mel_spectrogram(x, torch.from_numpy(lens).to(dev), n_mels=enc.dims.n_mels)
 
     with torch.inference_mode():
-        memory, _, prompt, _ = encode(*mel(batch["speech"], batch["speech_lens"]),
-                                      *mel(batch["enroll"], batch["enroll_lens"]))
+        memory, prompt = encode(*mel(batch["speech"], batch["speech_lens"]),
+                                *mel(batch["enroll"], batch["enroll_lens"]))
     greedy_cfg = dataclasses.replace(d.dcfg, speculative_gamma=0)
     for name, (t, dr) in (("bf16", (dec, draft)),
                           ("f32", (copy.deepcopy(dec).float(), copy.deepcopy(draft).float()))):
@@ -2423,6 +2442,253 @@ def run_train_entry(torch, dev):
     return launches, rate
 
 
+EMBED_PATHS = {  # phase 4e: path -> kernels it must launch
+    "cli.decode --enroll_type embedding greedy": ("decode_cross_attention",
+                                                  "decode_self_attention"),
+    "cli.decode --enroll_type embedding beam 5": ("decode_cross_attention_grouped",
+                                                  "decode_self_attention", "beam_reorder_cache"),
+    # joint decode is dense (no cross kernel) and reorders by index_select
+    "cli.decode --enroll_type embedding --ctc_weight 0.3": ("decode_self_attention",),
+}
+# the embedding encoder's attention is the plain one, as the JAX package's
+EMBED_PLAIN = ("flash_attention_tmaj", "flash_attention")
+
+
+def check_small_embedding(torch, dev) -> None:
+    """Phase 4e, first: a small embedding-enrollment model (``cat``
+    adapter, 2 + 2 layers, f32) encodes the same mel and speaker embedding
+    on the card and on the CPU (memory to 1e-3), then the prompt-free
+    decoder decodes both memories greedy and at beam 3 over the int4 cross
+    K/V with the kernels on the card and the plain versions on the CPU: the
+    tokens must be identical."""
+    from robustsq_whisper_torch.decode.search import DecodeConfig, build_beam_decoder
+    from robustsq_whisper_torch.init import init_params
+    from robustsq_whisper_torch.models import (
+        SpkAdapterTSEncoder, TSDecoder, TSEncoderConfig, WhisperDims,
+    )
+
+    dims = WhisperDims(
+        n_mels=80, n_vocab=120, n_audio_ctx=256, n_audio_state=128, n_audio_head=2,
+        n_audio_layer=2, n_text_ctx=64, n_text_state=128, n_text_head=2, n_text_layer=2,
+    )
+    ts = TSEncoderConfig(enroll_type="embedding", enroll_size=256)
+    enc = init_params(SpkAdapterTSEncoder(dims, ts), 11).eval()
+    dec = init_params(TSDecoder(dims, use_spk_prompt=False, cross_kv_bits=4), 12).eval()
+    rng = np.random.default_rng(13)
+    mel = torch.from_numpy(rng.standard_normal((2, 80, 512)).astype(np.float32))
+    emb = torch.from_numpy(rng.standard_normal((2, 256)).astype(np.float32))
+    lens = torch.tensor([512, 380])
+    base = dict(max_new_tokens=16, eot=2, init_tokens=(1, 4), quantize_cross_kv=True)
+    out = {}
+    for where in ("cpu", dev):
+        e = copy.deepcopy(enc).to(where)
+        with torch.inference_mode():
+            memory, _ = e(mel.to(where), lens.to(where), emb.to(where))
+        prompt = memory.new_zeros((2, 0, 128))
+        out[str(where)] = [memory.cpu()] + [
+            build_beam_decoder(copy.deepcopy(dec), DecodeConfig(**base, beam_size=k),
+                               where)(memory, prompt)[0].cpu() for k in (1, 3)]
+    (m_cpu, g_cpu, b_cpu), (m_gpu, g_gpu, b_gpu) = out["cpu"], out[str(dev)]
+    err = (m_cpu - m_gpu).abs().max().item()
+    log(f"small agreement, embedding enrollment: encoder max_abs_err {err:.3e} (tol 1e-3, f32); "
+        f"greedy tokens card {g_gpu.tolist()} cpu {g_cpu.tolist()}; beam 3 tokens card "
+        f"{b_gpu.tolist()} cpu {b_cpu.tolist()}")
+    if err > 1e-3 or not torch.equal(g_cpu, g_gpu) or not torch.equal(b_cpu, b_gpu):
+        raise AssertionError("embedding enrollment: the card and the CPU disagree")
+
+
+def run_embedding_enrollment(torch, dev):
+    """Phase 4e: the recipe's data stages 101-103 and embedding enrollment
+    through the entry points, at Whisper-medium and ResNet34 full width.
+    ``cli.datapre``: ``synth-clean`` (8 speakers x 4 utterances of 30 s),
+    ``overlap`` (16 mixtures, SIR in [-5, 5] dB), ``wham`` (SNR in [10, 20]
+    dB over 4 synthetic noise WAVs), ``enroll-json``, ``enroll-scp`` in
+    eval mode (an 8-utterance eval dir of concrete rows), ``num-samples``,
+    ``fix`` and ``validate``; ``spk-embed`` on the card at batch 16 over the
+    train dir (its 32 pool utterances) and the eval dir; the embeddings of 4
+    utterances on the card against the same seeded ResNet34 on the CPU (f32,
+    cosine >= 0.999); ``cli.train --enroll_type embedding`` of the medium
+    lora config, one epoch of 4 steps at batch 8 with the validation pass
+    and the valid WER; ``cli.decode --enroll_type embedding`` from that
+    checkpoint greedy and at beam 5 (int4 cross K/V, 32 new tokens) and one
+    ``--ctc_weight 0.3`` decode, each run's launches counted (the rows of
+    ``EMBED_PATHS`` must launch, the flash rows must not). Texts are token
+    ids, as in 4b. Returns {path: launches}."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from robustsq_whisper_torch.cli import datapre as cli_datapre
+    from robustsq_whisper_torch.cli import decode as cli_decode
+    from robustsq_whisper_torch.cli import train as cli_train
+    from robustsq_whisper_torch.data import kaldi_io
+    from robustsq_whisper_torch.models.speaker_resnet import embed_batch, speaker_model
+    from robustsq_whisper_torch.tokenizer import whisper_tokenizer
+
+    t_phase = time.perf_counter()
+    check_small_embedding(torch, dev)
+    root = tempfile.mkdtemp(prefix="embedding_")
+    load_tokenizer = whisper_tokenizer.load_tokenizer
+    whisper_tokenizer.load_tokenizer = lambda assets: TokenIds(load_tokenizer(assets))
+    launches, report, info = {}, {}, gpu_info()
+    path = lambda *p: os.path.join(root, *p)  # noqa: E731
+
+    def datapre(*args, rc_want=0):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_datapre.main(list(args))
+        wall = time.perf_counter() - t0
+        stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+        log(f"cli.datapre {args[0]}: rc {rc}, {wall:.2f} s, {stats}")
+        if rc != rc_want:
+            raise AssertionError(f"cli.datapre {args[0]}: rc {rc}")
+        report.setdefault("datapre_s", {})[args[0]] = wall
+        return stats
+
+    try:
+        datapre("synth-clean", "--out_dir", path("clean"), "--n_speakers", "8",
+                "--utts_per_spk", "4", "--seconds", "30")
+        st = datapre("overlap", "--src_dir", path("clean"), "--out_dir", path("ov"),
+                     "--num_mixtures", "16", "--sir_min", "-5", "--sir_max", "5")
+        if st != {"num_mixtures": 16, "num_rows": 32}:
+            raise AssertionError(f"overlap: {st}")
+        rng = np.random.default_rng(21)
+        for i in range(4):  # WHAM!-like noise: low-passed, 20 s
+            x = np.cumsum(rng.standard_normal(20 * 16000)) * 0.002
+            kaldi_io.write_wav(path("noise", f"noise{i}.wav"),
+                               (x - x.mean()).astype(np.float32) / (np.abs(x).max() + 1e-9) * 0.5)
+        train_dir = path("train")
+        datapre("wham", "--clean_dir", path("ov"), "--noise_dir", path("noise"), "--out_dir",
+                train_dir, "--snr_min", "10", "--snr_max", "20")
+        datapre("enroll-json", "--librispeech_root", path("clean", "wavs"), "--out",
+                path("spk2enroll.json"))
+        for cmd in ("num-samples", "fix", "validate"):
+            datapre(cmd, train_dir)
+        # the eval dir: 8 utterances, concrete enrollment rows, no pool
+        eval_dir = path("eval")
+        kaldi_io.subset_data_dir(train_dir, eval_dir, 8)
+        os.remove(os.path.join(eval_dir, "spk2enroll.json"))
+        datapre("enroll-scp", "--data_dir", eval_dir, "--out", os.path.join(eval_dir, "enroll.scp"),
+                "--mode", "eval", "--spk2enroll", path("spk2enroll.json"))
+        datapre("validate", eval_dir)
+
+        # stage 103 on the card, under PyTorch's own TF32 defaults (cuDNN on,
+        # matmul off), which main turns off: a plain spk-embed run has them,
+        # so the parity below tests embed_batch's own guard
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+        for name, d, n in (("train", train_dir, 32), ("eval", eval_dir, 8)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = datapre("spk-embed", "--data_dir", d, "--out_dir", path("emb", name),
+                         "--batch_size", "16", "--device", str(dev))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if st != {"num_utts": n, "embed_dim": 256}:
+                raise AssertionError(f"spk-embed {name}: {st}")
+            report[f"spk-embed {name}"] = {"utts": n, "main_s": wall, "utts_per_s": n / wall}
+        model = speaker_model(device=dev)
+        enroll = kaldi_io.read_scp(os.path.join(eval_dir, "enroll.scp"))
+        utts = sorted(enroll)[:4]
+        batch = np.zeros((16, 30 * 16000), np.float32)
+        lens = np.full((16,), 400, np.int64)
+        for j, u in enumerate(utts):
+            a, _ = kaldi_io.read_wav(enroll[u])
+            batch[j, : len(a)], lens[j] = a[: 30 * 16000], max(len(a), 400)
+        x, xl = torch.from_numpy(batch).to(dev), torch.from_numpy(lens).to(dev)
+        ms = time_events_ms(torch, lambda: embed_batch(model, x, xl), reps=3)
+        card = embed_batch(model, x, xl)[:4].cpu()
+        host = embed_batch(speaker_model(device="cpu"), torch.from_numpy(batch[:4]),
+                           torch.from_numpy(lens[:4]))
+        scp = kaldi_io.read_scp(os.path.join(eval_dir, "resnet.scp"))
+        files = torch.from_numpy(np.stack([np.load(scp[u]) for u in utts]))
+        err = (card - host).abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(card, host, dim=-1).min().item()
+        cos_files = torch.nn.functional.cosine_similarity(files, host, dim=-1).min().item()
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        log(f"stage-103 parity on {info}, cuDNN TF32 allowed outside embed_batch: 4 "
+            f"embeddings, card vs CPU max_abs_err {err:.3e}, min cosine {cos:.6f}; "
+            f"spk-embed's files vs CPU min cosine {cos_files:.6f}; ResNet34 + fbank at batch "
+            f"16 x 30 s: {ms:.2f} ms ({16e3 / ms:.1f} utterances/s, f32 without TF32)")
+        if cos < 0.999 or cos_files < 0.999:
+            raise AssertionError(f"stage 103: card vs CPU cosine {cos}, files {cos_files}")
+        report["stage-103 parity"] = {"max_abs_err": err, "min_cos": cos,
+                                      "batch16_ms": ms, "utts_per_s_device": 16e3 / ms}
+        del model, x, xl
+        torch.cuda.empty_cache()
+
+        # stage 11 and 12 with embedding enrollment
+        config = path("lora.yaml")
+        with open(ENTRY_CONFIG) as f, open(config, "w") as g:
+            g.write(f.read() + "decode_conf:\n  max_new_tokens: 32\n  quantize_cross_kv: true\n")
+        expdir = path("exp")
+        records = []
+        argv = ["--config", config, "--train_dir", train_dir, "--valid_dir", eval_dir,
+                "--expdir", expdir, "--batch_size", "8", "--num_epochs", "1",
+                "--valid_wer_utts", "8", "--ckpt_every_steps", "0", "--log_every", "1",
+                "--enroll_type", "embedding", "--tokenizer_assets", ENTRY_RANKS,
+                "--device", str(dev)]
+        torch.cuda.reset_peak_memory_stats(dev)
+        rc, wall, counts = counted(torch, lambda: cli_train.main(
+            argv, metrics_hook=lambda s, v: records.append((s, dict(v)))))
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        launches["cli.train --enroll_type embedding"] = counts
+        steps = [s for s, v in records if "loss" in v]
+        valid = [v for _, v in records if "valid.acc" in v]
+        bad = [(s, k) for s, v in records for k, x in v.items() if not np.isfinite(x)]
+        if rc != 0 or steps != [1, 2, 3, 4] or len(valid) != 1 or bad:
+            raise AssertionError(f"cli.train --enroll_type embedding: rc {rc}, steps {steps}, "
+                                 f"{len(valid)} valid passes, non-finite {bad[:4]}")
+        seconds = records[-1][1]
+        rate = 4 * 8 * 30 / seconds["seconds.train"]
+        log(f"cli.train --enroll_type embedding (medium lora, adapter cat) on {info}: rc {rc}, "
+            f"main {wall:.1f} s, 4 steps at batch 8 in {seconds['seconds.train']:.2f} s of "
+            f"training wall ({rate:.2f} audio-s per GPU-s), validation "
+            f"{seconds['seconds.valid']:.2f} s, valid WER {seconds['seconds.valid_wer']:.2f} s, "
+            f"peak memory {peak:.2f} GiB; steps/s by step "
+            f"{[round(v['steps_per_sec'], 3) for _, v in records if 'steps_per_sec' in v]}; "
+            f"valid {valid[0]}; launches {counts}")
+        report["cli.train"] = {"main_s": wall, "audio_s_per_gpu_s": rate, "peak_gib": peak,
+                               "train_s": seconds["seconds.train"]}
+
+        for beam in (1, 5):
+            with open(path(f"decode_beam{beam}.yaml"), "w") as f:
+                f.write(f"decode_conf:\n  beam_size: {beam}\n  max_new_tokens: 32\n"
+                        "  quantize_cross_kv: true\n")
+        for name, beam, extra in (("greedy", 1, ()), ("beam 5", 5, ()),
+                                  ("--ctc_weight 0.3", 1, ("--ctc_weight", "0.3"))):
+            key = f"cli.decode --enroll_type embedding {name}"
+            out = path(f"decode_{beam}_{len(extra)}")
+            dargv = ["--config", config, "--inference_config", path(f"decode_beam{beam}.yaml"),
+                     "--data_dir", eval_dir, "--expdir", expdir, "--output_dir", out,
+                     "--cross_kv_bits", "4", "--batch_size", "4", "--enroll_type", "embedding",
+                     "--tokenizer_assets", ENTRY_RANKS, "--device", str(dev), *extra]
+            rc, wall, counts = counted(torch, lambda: cli_decode.main(dargv))
+            launches[key] = counts
+            hyps = kaldi_io.read_scp(os.path.join(out, "text"))
+            with open(os.path.join(out, "score.txt")) as f:
+                scores = {k: float(v) for k, v in (line.split() for line in f)}
+            log(f"{key} on {info}: rc {rc}, main {wall:.2f} s, RTF {scores['rtf']:.2f} (decode "
+                f"loop); rows 2a {counts['decode_cross_attention']} 2b "
+                f"{counts['decode_cross_attention_grouped']} 3a "
+                f"{counts['decode_self_attention']} 7a {counts['beam_reorder_cache']}; "
+                f"launches {counts}")
+            missing = [n for n in EMBED_PATHS[key] if counts[n] == 0]
+            flash = [n for n in EMBED_PLAIN if counts[n]]
+            if rc != 0 or missing or flash or len(hyps) != 8 or not any(hyps.values()):
+                raise AssertionError(f"{key}: rc {rc}, not launched {missing}, flash rows "
+                                     f"launched {flash}, {len(hyps)} hypotheses")
+            report[key] = {"main_s": wall, "rtf": scores["rtf"]}
+    finally:
+        whisper_tokenizer.load_tokenizer = load_tokenizer
+        shutil.rmtree(root, ignore_errors=True)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"data stages and embedding enrollment on {info}: {json.dumps(report)}")
+    return launches
+
+
 # the self-cache read kernels' names: the shared read's, and those of the
 # two kernels it replaced (to profile an older tree)
 SELF_KERNELS = ("self_cache_read_kernel", "decode_self_kernel", "settled_kernel")
@@ -2441,7 +2707,7 @@ def profile_runs(torch, greedy, beam, train) -> None:
     state, step, batch, gen = train
     os.makedirs(BUILD, exist_ok=True)
     for phase, fn in (
-        ("encode", lambda: chunked_encode(engine.encode, *staged, 0)),
+        ("encode", lambda: chunked_encode(engine.encode, staged, 0)),
         ("run", lambda: engine.run(memory, prompt)),
         ("beam_run", lambda: eager(b_memory, b_prompt)),
         ("beam_run_deferred", lambda: deferred(b_memory, b_prompt)),
@@ -2489,13 +2755,14 @@ def main() -> int:
     asr_launches = run_asr_paths(torch, dev, models, batch, max_new)
     entry_launches = run_entry_points(torch, dev)
     train_entry_launches, cli_rate = run_train_entry(torch, dev)
+    embed_launches = run_embedding_enrollment(torch, dev)
     train_launches, train_run, train_rates = run_train_paths(torch, dev)
     log(f"training audio-s per GPU-s on {gpu_info()}: cli.train (lora, batch 8, the loop's "
         f"training wall) {cli_rate:.2f}, make_train_step in memory (lora, fastest step) "
         f"{train_rates['train lora']:.2f}")
     profile_runs(torch, greedy, beam_run, train_run)
     by_path = {"greedy": greedy_launches, **beam_launches, **layout_launches, **asr_launches,
-               **entry_launches, **train_entry_launches, **train_launches}
+               **entry_launches, **train_entry_launches, **embed_launches, **train_launches}
     for r in rows:  # launches on the path this row's kernel was ported for
         r["launches"] = by_path[OWN_PATH.get(r["name"], "greedy")][r["name"]]
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}

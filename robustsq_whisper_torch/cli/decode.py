@@ -24,7 +24,11 @@ the config's seeded random init. Besides greedy and beam search:
 - ``--timestamps true`` decodes Whisper timestamp tokens greedily and
   writes a ``segments`` file beside ``text``;
 - ``--long_audio true`` decodes every utterance at full length in
-  ``--chunk_seconds`` windows (``decode/long_audio.py``).
+  ``--chunk_seconds`` windows (``decode/long_audio.py``);
+- ``--enroll_type embedding`` decodes with the embedding-enrollment
+  encoder and a prompt-free decoder from the stage-103
+  ``{enroll_prefix}.scp`` of the data dir (greedy, beam, speculative and
+  joint CTC; not ``--long_audio``).
 
 The flag combinations the JAX CLI refuses stop with its messages. Paths
 the port does not have yet (``UNSUPPORTED``) stop with a message naming
@@ -47,8 +51,6 @@ UNSUPPORTED = (
      "tensor-parallel serving is ROADMAP A15 (multi-GPU)"),
     ("--int8_weights", lambda a: a.int8_weights,
      "W8A8 step weights are ROADMAP A10"),
-    ("--enroll_type", lambda a: a.enroll_type == "embedding",
-     "embedding enrollment is ROADMAP A14"),
 )
 
 
@@ -117,8 +119,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="suppress eot until this many tokens were emitted")
     p.add_argument("--model_parallel", type=int, default=1)
     p.add_argument("--timestamps", type=str2bool, default=False)
-    p.add_argument("--enroll_type", default=None, choices=["audio", "embedding"])
-    p.add_argument("--enroll_prefix", default="resnet")
+    p.add_argument("--enroll_type", default=None, choices=["audio", "embedding"],
+                   help="enrollment modality: audio (the Qformer on the enrollment "
+                   "waveform) or embedding (stage-103 speaker embeddings at block 0); "
+                   "overrides encoder_conf.enroll_type")
+    p.add_argument("--enroll_prefix", default="resnet",
+                   help="embedding scp basename in the data dir")
     p.add_argument("--seed", type=int, default=0)
     return p
 
@@ -155,8 +161,9 @@ def init_tokens(exp, language: str, timestamps: bool = False) -> Tuple[int, ...]
     return (exp.model.sos,)
 
 
-def open_dataset(exp, args, tokenizer):
-    """The Kaldi dir ``args.data_dir``, read as the JAX CLIs read it. The
+def open_dataset(exp, args, tokenizer, enroll_prefix: str = "resnet"):
+    """The Kaldi dir ``args.data_dir``, read as the JAX CLIs read it (the
+    embeddings of embedding enrollment from ``{enroll_prefix}.scp``). The
     JAX ``cli.decode`` and ``cli.distill`` draw one unshuffled batch of
     ``args.batch_size`` to initialise their model, which moves the dataset's
     enrollment picks and crops on; the same batch is drawn here, so that
@@ -167,6 +174,7 @@ def open_dataset(exp, args, tokenizer):
         args.data_dir, tokenizer,
         speech_seconds=exp.speech_seconds, enroll_seconds=exp.enroll_seconds,
         utt_style=exp.utt_style, seed=args.seed, enroll_type=exp.ts.enroll_type,
+        enroll_prefix=enroll_prefix,
     )
     next(dataset.batches(args.batch_size, shuffle=False, drop_last=False))
     return dataset
@@ -278,9 +286,22 @@ def prepare(argv=None) -> Decoding:
 
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.enroll_type == "embedding" and args.model_parallel > 1:
+        parser.error(
+            "--model_parallel serving of the embedding-enrollment encoder is "
+            "not wired up; decode with --model_parallel 1"
+        )
     check_supported(parser, args)
     device = resolve_device(args.device)
     exp = load_exp(args)
+    if args.enroll_type is not None:
+        exp = dataclasses.replace(
+            exp, ts=dataclasses.replace(exp.ts, enroll_type=args.enroll_type))
+    if args.long_audio and exp.ts.enroll_type == "embedding":
+        parser.error(
+            "--long_audio windows share one Qformer speaker prompt and is "
+            "audio-enrollment only; the embedding path decodes fixed windows"
+        )
     if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
         logging.info("--data_parallel: decoding on one device (multi-GPU is ROADMAP A15)")
     spec = max(0, args.speculative_gamma)
@@ -331,7 +352,7 @@ def prepare(argv=None) -> Decoding:
             dcfg, quantize_cross_kv=False, quantize_weights=False, prefill_quantized=False,
         )
     tokenizer = load_tokenizer(args.tokenizer_assets)
-    dataset = open_dataset(exp, args, tokenizer)
+    dataset = open_dataset(exp, args, tokenizer, args.enroll_prefix)
     return Decoding(exp, args, dcfg, dataset, tokenizer, device, compute_dtype(exp), draft_sd)
 
 

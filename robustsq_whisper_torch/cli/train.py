@@ -12,13 +12,17 @@ The flags are the JAX package's ``cli.train`` flags plus ``--device``
 cpu``) and ``--log_every``. Checkpoints go to ``{expdir}/checkpoints`` in
 the port's format (``train/checkpoint.py``), the n-best average to its
 ``ave`` subdirectory; the port's ``cli.decode`` and ``cli.serve`` read both. A run
-resumes from the latest checkpoint there. Paths the port does not have yet
-(meshes, FSDP, embedding enrollment) stop with a message naming their
-ROADMAP item.
+resumes from the latest checkpoint there. ``--enroll_type embedding``
+trains the embedding-enrollment model on the stage-103
+``{enroll_prefix}.scp`` (``--enroll_prefix``, default ``resnet``) of each
+data dir. Paths the port does not have yet (meshes, FSDP) stop with a
+message naming their ROADMAP item.
 
 ``build_model`` is shared with ``cli.decode`` and ``cli.serve``: the
 experiment's ``TSASRModel`` with seeded random weights and, with
-``pretrained``, the Whisper encoder and decoder of an OpenAI checkpoint.
+``pretrained``, the Whisper encoder and decoder of an OpenAI checkpoint
+(and, for the ``cln`` adapter, conditional layer norms that start as its
+block-0 ``attn_ln`` and ``mlp_ln``).
 """
 
 from __future__ import annotations
@@ -43,8 +47,6 @@ UNSUPPORTED = (
      "tensor-parallel training is ROADMAP A15 (multi-GPU)"),
     ("--fsdp", lambda a: a.fsdp is not None and a.fsdp,
      "sharded (FSDP) training is ROADMAP A15 (multi-GPU)"),
-    ("--enroll_type", lambda a: a.enroll_type == "embedding",
-     "embedding enrollment is ROADMAP A14"),
 )
 
 
@@ -56,12 +58,20 @@ def compute_dtype(exp: ExperimentConfig) -> torch.dtype:
 def load_pretrained(model: TSASRModel, path: str, vocab_size: int) -> None:
     """Copy an OpenAI Whisper checkpoint's encoder and decoder over the
     model's Whisper submodules (every parameter of both), the token table
-    adapted to ``vocab_size`` (``load.adapt_vocab``)."""
+    adapted to ``vocab_size`` (``load.adapt_vocab``). The embedding
+    encoder's conditional layer norms (adapter ``cln``) start as the
+    checkpoint's block-0 ``attn_ln`` and ``mlp_ln``; their delta heads keep
+    their zeros."""
     from ..models.whisper import load
 
     _, enc_sd, dec_sd = load.load_openai_checkpoint(path)
     dec_sd = load.adapt_vocab(dec_sd, vocab_size)
-    for module, sd in ((model.encoder.encoder, enc_sd), (model.decoder.decoder, dec_sd)):
+    enc = model.encoder
+    cln = getattr(enc, "attn_cln", None) is not None
+    # with conditional layer norms block 0 has no attn_ln / mlp_ln of its own
+    blocks_sd = {k: v for k, v in enc_sd.items()
+                 if not (cln and k.startswith(("blocks.0.attn_ln.", "blocks.0.mlp_ln.")))}
+    for module, sd in ((enc.encoder, blocks_sd), (model.decoder.decoder, dec_sd)):
         own = dict(module.named_parameters())
         if own.keys() != sd.keys():
             raise KeyError(f"{path}: the checkpoint's names differ from the model's: "
@@ -71,6 +81,10 @@ def load_pretrained(model: TSASRModel, path: str, vocab_size: int) -> None:
                 raise ValueError(f"{path}: {name} is {tuple(sd[name].shape)}, the model's "
                                  f"{tuple(p.shape)}")
             p.copy_(sd[name])
+    if cln:
+        for norm, ln in ((enc.attn_cln, "attn_ln"), (enc.mlp_cln, "mlp_ln")):
+            norm.weight.copy_(enc_sd[f"blocks.0.{ln}.weight"])
+            norm.bias.copy_(enc_sd[f"blocks.0.{ln}.bias"])
 
 
 def build_model(
@@ -83,8 +97,6 @@ def build_model(
     dev = resolve_device(device)
     model = init_params(TSASRModel(exp.resolved_dims(), exp.ts, exp.model), seed)
     if pretrained:
-        if exp.ts.enroll_type == "embedding":  # TSASRModel raises before this
-            raise NotImplementedError("embedding enrollment is ROADMAP A14")
         load_pretrained(model, pretrained, exp.model.vocab_size)
     if compute_dtype(exp) != torch.float32:
         model.set_compute_dtype(compute_dtype(exp))
@@ -119,8 +131,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fsdp", type=str2bool, default=None, help="a no-op when false")
     p.add_argument("--num_epochs", type=int, default=None)
     p.add_argument("--batch_size", type=int, default=None)
-    p.add_argument("--enroll_type", default=None, choices=["audio", "embedding"])
-    p.add_argument("--enroll_prefix", default=None, help="embedding enrollment's scp")
+    p.add_argument("--enroll_type", default=None, choices=["audio", "embedding"],
+                   help="enrollment modality: audio (the Qformer on the enrollment "
+                   "waveform) or embedding (stage-103 speaker embeddings at block 0); "
+                   "overrides encoder_conf.enroll_type")
+    p.add_argument("--enroll_prefix", default=None,
+                   help="embedding scp basename in the data dirs (default resnet)")
     p.add_argument("--ckpt_every_steps", type=int, default=1000,
                    help="mid-epoch checkpoint cadence in steps (0 = none)")
     p.add_argument("--ckpt_every_epochs", type=int, default=1,
@@ -152,6 +168,8 @@ def main(argv=None, metrics_hook=None) -> int:
         exp.num_epochs = args.num_epochs
     if args.batch_size is not None:
         exp.batch_size = args.batch_size
+    if args.enroll_type is not None:
+        exp.ts = dataclasses.replace(exp.ts, enroll_type=args.enroll_type)
     if exp.train.fsdp:
         parser.error("train_conf.fsdp: sharded (FSDP) training is ROADMAP A15 (multi-GPU)")
     if dev.type == "cuda" and torch.cuda.device_count() > 1:
@@ -161,7 +179,7 @@ def main(argv=None, metrics_hook=None) -> int:
     ds_kwargs = dict(
         speech_seconds=exp.speech_seconds, enroll_seconds=exp.enroll_seconds,
         utt_style=exp.utt_style, num_speakers=exp.model.num_speakers, seed=args.seed,
-        enroll_type=exp.ts.enroll_type,
+        enroll_type=exp.ts.enroll_type, enroll_prefix=args.enroll_prefix or "resnet",
     )
     dataset = KaldiTSDataset(args.train_dir, tokenizer, **ds_kwargs)
     logging.info("dataset: %d utterances", len(dataset))

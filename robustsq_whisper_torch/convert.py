@@ -5,7 +5,9 @@ Takes the variables dict of a JAX module (``{"params": ..., "buffers":
 counterpart here. The module paths are the flax names with these changes:
 
 - the scan-stacked ``block`` subtree (a leading layer axis on every leaf)
-  becomes ``blocks.{i}``; unrolled ``layers_{i}`` becomes ``layers.{i}``;
+  becomes ``blocks.{i}``; unrolled ``layers_{i}`` and ``blocks_{i}`` (the
+  embedding-enrollment encoder's, ``scan_layers=False``) become
+  ``layers.{i}`` and ``blocks.{i}``;
 - a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in), a
   Conv ``kernel`` (k, in, out) a Conv1d ``weight`` (out, in, k);
 - LayerNorm ``scale`` and Embed ``embedding`` become ``weight``;
@@ -17,6 +19,13 @@ added or dropped: every flax leaf maps to exactly one tensor (L tensors for
 a stacked leaf). The training model's heads need no rule of their own:
 ``ctc/ctc_lo`` and ``asp/projection`` are Dense layers and the AAM
 ``classifier`` (num_speakers, dim) keeps its name and layout.
+
+The embedding-enrollment encoder's ``adapter`` (``proj``, ``fc1``/``fc2``,
+``film/{trunk_i, gamma, beta}``, ``adapter_norm``) and its conditional
+layer norms ``attn_cln`` / ``mlp_cln`` (``scale``, ``bias`` and the
+``delta_scale`` / ``delta_bias`` Dense heads) follow the same rules.
+``flax_speaker_to_state_dict`` maps the speaker ResNet's variables
+(``params`` and ``batch_stats``).
 
 ``flax_lora_to_port`` carries a JAX LoRA tree ``{kernel path: {"a": ([L,]
 in, r), "b": ([L,] r, out)}}`` over to the port's per-layer factors, keyed
@@ -53,10 +62,11 @@ def _leaf(name: str, x: np.ndarray) -> Tuple[str, np.ndarray]:
 
 def _unstacked(path: Tuple[str, ...], x: np.ndarray) -> List[Tuple[List[str], np.ndarray]]:
     """A flax path and its leaf as (port module path parts, array) pairs:
-    ``layers_i`` -> ``layers.i``, and a scan-stacked ``block`` leaf split
-    into one ``blocks.i`` entry per layer."""
+    ``layers_i`` -> ``layers.i``, ``blocks_i`` -> ``blocks.i``, and a
+    scan-stacked ``block`` leaf split into one ``blocks.i`` entry per
+    layer."""
     parts = [
-        p.replace("layers_", "layers.") if p.startswith("layers_") else p
+        p.replace("_", ".", 1) if p.startswith(("layers_", "blocks_")) else p
         for p in path
     ]
     if "block" not in parts:
@@ -108,3 +118,27 @@ def load_flax(module: torch.nn.Module, variables: Any) -> torch.nn.Module:
         strict=True,
     )
     return module
+
+
+def flax_speaker_to_state_dict(variables: Any) -> Dict[str, torch.Tensor]:
+    """The JAX ``SpeakerResNet34``'s variables -> the port's state dict, f32:
+    a Conv ``kernel`` (kH, kW, in, out) becomes a Conv2d ``weight`` (out,
+    in, kH, kW) over the same (time, freq) map, BatchNorm ``scale`` /
+    ``bias`` its ``weight`` / ``bias`` and ``batch_stats`` ``mean`` / ``var``
+    its running statistics (``num_batches_tracked`` 0), the ``embed``
+    Dense a Linear (both pool frequency-major, so no permutation)."""
+    out: Dict[str, torch.Tensor] = {}
+    for collection, tree in variables.items():
+        for path, leaf in _leaves(tree):
+            *mods, name = path
+            x = np.asarray(leaf, np.float32)
+            if collection == "batch_stats":
+                name = {"mean": "running_mean", "var": "running_var"}[name]
+                out[".".join(mods + ["num_batches_tracked"])] = torch.zeros((), dtype=torch.long)
+            elif name == "kernel":
+                x = x.transpose(3, 2, 0, 1) if x.ndim == 4 else x.T
+                name = "weight"
+            elif name == "scale":
+                name = "weight"
+            out[".".join(mods + [name])] = torch.from_numpy(np.array(x, np.float32))
+    return out

@@ -1,25 +1,30 @@
 """Kaldi-dir-backed target-speaker dataset with fixed-shape batching.
 
-Mirrors the JAX package's ``data/dataset.py`` for audio enrollment. Reads a
-data dir containing::
+Mirrors the JAX package's ``data/dataset.py``. Reads a data dir
+containing::
 
-    wav.scp  utt2spk  text  enroll.scp  [spk2enroll.json]
+    wav.scp  utt2spk  text  enroll.scp  [spk2enroll.json]  [resnet.scp]
 
 - ``text`` is tokenized with the given tokenizer (ids, not words);
 - lazy ``*utt spk`` enrollment rows resolve to a random same-speaker
   enrollment utterance, and enrollments longer than ``enroll_seconds``
   are cropped at a random start;
 - batches are fixed-shape (speech padded or cut to ``speech_seconds``);
-- ``neg_logits`` / ``spk_labels`` come from the utt ids (``collate.py``).
+- ``neg_logits`` / ``spk_labels`` come from the utt ids (``collate.py``);
+- with ``enroll_type="embedding"`` a batch carries ``enroll_embed`` (B,
+  enroll_size) from the stage-103 ``{enroll_prefix}.scp`` (default
+  ``resnet.scp``) in place of enrollment audio: a lazy ``*utt spk`` row
+  resolves to a random same-speaker enrollment utterance, whose id keys
+  the scp; a concrete or absent row keys it by the mixture utt.
 
 The random draws are the JAX package's, in its order, from one
 ``np.random.default_rng(seed)``: the shuffle of ``batches``, then per
-utterance the enrollment pick and the crop start; so a seed picks the same
-enrollments and crops in both packages. The speech window of a batch is
+utterance the enrollment pick and the crop start (with embeddings the
+pick alone); so a seed picks the same enrollments and crops in both
+packages. The speech window of a batch is
 read in one call of the native reader (``data/native_loader.py``, WAV and
 FLAC over a thread pool), or file by file with scipy where that reader
 cannot be built; ``BATCH_READS`` counts the batches each served.
-``enroll_type="embedding"`` is ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -55,11 +60,8 @@ class KaldiTSDataset:
         num_speakers: Optional[int] = None,
         seed: int = 0,
         enroll_type: str = "audio",
+        enroll_prefix: str = "resnet",
     ):
-        if enroll_type == "embedding":
-            raise NotImplementedError("embedding enrollment is ROADMAP A14")
-        if enroll_type != "audio":
-            raise ValueError(f"enroll_type must be audio|embedding, got {enroll_type}")
         self.data_dir = data_dir
         self.tokenizer = tokenizer
         self.speech_samples = int(speech_seconds * self.sample_rate)
@@ -76,6 +78,18 @@ class KaldiTSDataset:
         s2e = os.path.join(data_dir, "spk2enroll.json")
         self.spk2enroll = kaldi_io.read_spk2enroll(s2e) if os.path.exists(s2e) else None
         self.utt_ids: List[str] = sorted(set(self.wav) & set(self.text))
+        self.enroll_type, self.enroll_prefix = enroll_type, enroll_prefix
+        self.embed_scp: Dict[str, str] = {}
+        if enroll_type == "embedding":
+            scp_path = os.path.join(data_dir, f"{enroll_prefix}.scp")
+            if not os.path.exists(scp_path):
+                raise FileNotFoundError(
+                    f"{scp_path}: enroll_type=embedding needs the stage-103 "
+                    f"embedding scp (cli.datapre extract_embeddings)"
+                )
+            self.embed_scp = kaldi_io.read_scp(scp_path)
+        elif enroll_type != "audio":
+            raise ValueError(f"enroll_type must be audio|embedding, got {enroll_type}")
         self.reader = native_loader.reader()
         logging.getLogger("robustsq_whisper_torch.data").info(
             "%s: %d utterances, speech read by the %s reader",
@@ -101,6 +115,22 @@ class KaldiTSDataset:
             audio = audio[start : start + self.enroll_samples]
         return audio
 
+    def _enroll_embedding(self, utt_id: str) -> np.ndarray:
+        """The speaker embedding of ``utt_id``: a lazy row draws a
+        same-speaker enrollment utterance, whose id keys the scp; a concrete
+        or absent row keys it by the mixture utt."""
+        row = self.enroll.get(utt_id)
+        key = utt_id
+        if row is not None and kaldi_io.is_lazy_enrollment(row):
+            enroll_utt, _ = kaldi_io.resolve_enrollment_entry(
+                row, self.spk2enroll, self.rng, exclude_utt=utt_id)
+            key = enroll_utt if enroll_utt is not None else utt_id
+        npy = self.embed_scp.get(key)
+        if npy is None:
+            raise KeyError(f"{self.enroll_prefix}.scp has no embedding for {key!r} "
+                           f"(mixture {utt_id!r})")
+        return np.load(npy).astype(np.float32).reshape(-1)
+
     def batches(
         self, batch_size: int, shuffle: bool = True, drop_last: bool = True
     ) -> Iterator[Dict[str, np.ndarray]]:
@@ -123,7 +153,11 @@ class KaldiTSDataset:
             else:
                 speech = [self._load_audio(p) for p in paths]
             BATCH_READS[self.reader] += 1
-            enroll = [self._enroll_audio(u) for u in utts]
+            enroll, embeds = None, None
+            if self.enroll_type == "embedding":
+                embeds = np.stack([self._enroll_embedding(u) for u in utts])
+            else:
+                enroll = [self._enroll_audio(u) for u in utts]
             texts = [np.asarray(self.tokenizer.encode(self.text[u]), np.int32) for u in utts]
             batch = collate.collate_batch(
                 utts, speech, enroll, texts,
@@ -133,6 +167,7 @@ class KaldiTSDataset:
                 style=self.utt_style,
                 speaker_to_id=self.speaker_to_id,
                 num_speakers=self.num_speakers,
+                enroll_embeds=embeds,
             )
             batch["utt_ids"] = utts  # host-only metadata
             yield batch

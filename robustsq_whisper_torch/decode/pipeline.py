@@ -4,9 +4,11 @@ decode of a Kaldi data dir with WER / CER scoring.
 ``serving_modules`` builds the serving encoder and decoder from a
 ``TSASRModel`` state dict: ``cli.decode``, ``cli.serve`` and the training
 loop's valid WER (``train/eval.py::ValidWer``) all serve through it.
-Mirrors the single-device Qformer case of the JAX package's
-``decode/pipeline.py``. ``build_decode_fns``: greedy or beam search as
-``DecodeConfig.beam_size`` says (``run`` returns the best beam of each
+Mirrors the single-device cases of the JAX package's
+``decode/pipeline.py``, for the Qformer encoder (audio enrollment) and
+``SpkAdapterTSEncoder`` (embedding enrollment, with an empty speaker
+prompt for the prompt-free decoder). ``build_decode_fns``: greedy or beam search as ``DecodeConfig.beam_size``
+says (``run`` returns the best beam of each
 utterance), speculative greedy decode when ``speculative_gamma > 0``
 (``run`` then also returns the draft-acceptance counters, and ``draft``
 may give a separate draft decoder, e.g. a distilled one), or joint
@@ -15,8 +17,8 @@ CTC head; ``run`` then takes the encoder lengths too). ``decode_dataset``
 runs a ``KaldiTSDataset`` through them batch by batch (with
 ``with_timestamps`` it also writes the ``segments`` file) and
 ``score_and_write`` writes the ESPnet-style ``text`` (hypotheses) and
-``score.txt``. Mesh serving (data or tensor parallel) and embedding
-enrollment are later slices and raise ``NotImplementedError``.
+``score.txt``. Mesh serving (data or tensor parallel) is a later slice
+and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from .._device import resolve_device
 from ..audio.frontend import log_mel_spectrogram, pcm16_to_float, to_pcm16
 from ..data import kaldi_io
 from ..models.ts_decoder import TSDecoder
-from ..models.ts_encoder import QFormerTSEncoder
+from ..models.ts_encoder import QFormerTSEncoder, SpkAdapterTSEncoder
 from ..models.whisper.modules import AudioEncoder
 from .scorer import cer, wer
 from .search import DecodeConfig, build_beam_decoder, strip_eot
@@ -61,16 +63,19 @@ def serving_modules(
     dims, ts, mcfg, state_dict: Dict[str, torch.Tensor], dtype: torch.dtype, device,
     cross_kv_bits: int = 8, self_kv_bits: int = 16, flat_self_cache: bool = True,
 ):
-    """``(QFormerTSEncoder, TSDecoder)`` of the model ``(dims, ts, mcfg)``
+    """``(encoder, TSDecoder)`` of the model ``(dims, ts, mcfg)``
     (``WhisperDims``, ``TSEncoderConfig``, ``ModelConfig``) on ``device``,
     every floating tensor in ``dtype`` (serving keeps the weights in the
     compute dtype), loaded from the ``encoder.`` and ``decoder.`` entries of
-    a ``TSASRModel`` state dict."""
+    a ``TSASRModel`` state dict. The encoder is ``ts.enroll_type``'s:
+    ``QFormerTSEncoder``, or ``SpkAdapterTSEncoder`` with a prompt-free
+    decoder."""
+    emb = ts.enroll_type == "embedding"
     with torch.device(device):
-        encoder = QFormerTSEncoder(dims, ts)
+        encoder = (SpkAdapterTSEncoder if emb else QFormerTSEncoder)(dims, ts)
         decoder = TSDecoder(
             dims.replace(n_vocab=mcfg.vocab_size),
-            startofprev_token=mcfg.startofprev,
+            startofprev_token=mcfg.startofprev, use_spk_prompt=not emb,
             cross_kv_bits=cross_kv_bits, self_kv_bits=self_kv_bits,
             flat_self_cache=flat_self_cache,
         )
@@ -84,18 +89,17 @@ def serving_modules(
     return encoder, decoder
 
 
-def chunked_encode(enc_fn, feats, feats_lens, efeats, efeats_lens, chunk):
+def chunked_encode(enc_fn, args, chunk):
     """Encode in sub-batches of ``chunk`` rows and concatenate, bounding the
-    encoder's activation peak separately from the decode batch. ``chunk``
-    <= 0 or >= batch encodes in one call. Returns (memory, spk_prompt)."""
-    b = feats.shape[0]
+    encoder's activation peak separately from the decode batch.
+    ``enc_fn(*args) -> (memory, spk_prompt)``, every arg batch-leading;
+    ``chunk`` <= 0 or >= batch encodes in one call."""
+    b = args[0].shape[0]
     if chunk <= 0 or chunk >= b:
-        memory, _, spk_prompt, _ = enc_fn(feats, feats_lens, efeats, efeats_lens)
-        return memory, spk_prompt
+        return enc_fn(*args)
     mems, prompts = [], []
     for s in range(0, b, chunk):
-        sl = slice(s, s + chunk)
-        m, _, p, _ = enc_fn(feats[sl], feats_lens[sl], efeats[sl], efeats_lens[sl])
+        m, p = enc_fn(*(a[s : s + chunk] for a in args))
         mems.append(m)
         prompts.append(p)
     return torch.cat(mems, dim=0), torch.cat(prompts, dim=0)
@@ -110,9 +114,12 @@ def build_decode_fns(
     draft: Optional[TSDecoder] = None,
     ctc_lo: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
-    """``(encode, run)``: ``encode(mel, flens, emel, elens)`` returns the
-    encoder 4-tuple, ``run(memory, spk_prompt)`` returns (tokens, scores[,
-    stats]); the joint decoder's is ``run(memory, spk_prompt, mem_lens)``.
+    """``(encode, run)``: ``encode`` returns ``(memory, spk_prompt)``, from
+    ``(mel, flens, emel, elens)`` for the Qformer encoder and from ``(mel,
+    flens, enroll_embed)`` for ``SpkAdapterTSEncoder``, whose
+    ``spk_prompt`` is the empty (b, 0, n_state) one the prompt-free decoder
+    expects; ``run(memory, spk_prompt)`` returns (tokens, scores[, stats]);
+    the joint decoder's is ``run(memory, spk_prompt, mem_lens)``.
     ``ctc_lo``: the CTC head's (weight, bias), which joint decode needs.
     Moves the modules to ``device``."""
     if draft is not None and not (
@@ -124,8 +131,10 @@ def build_decode_fns(
         )
     if mesh is not None:
         raise NotImplementedError("multi-GPU serving is ROADMAP A15")
-    if not isinstance(encoder, QFormerTSEncoder):
-        raise NotImplementedError("embedding enrollment is ROADMAP A14")
+    emb = isinstance(encoder, SpkAdapterTSEncoder)
+    if emb and decoder.use_spk_prompt:
+        raise ValueError("embedding enrollment decodes prompt-free: build the TSDecoder "
+                         "with use_spk_prompt=False")
     dev = resolve_device(device)
     if dcfg.ctc_decode_weight > 0:
         if ctc_lo is None:
@@ -146,10 +155,18 @@ def build_decode_fns(
     else:
         run = build_beam_decoder(decoder, dcfg, dev)
     encoder.to(dev).eval()
-
-    @torch.inference_mode()
-    def encode(mel, flens, emel, elens):
-        return encoder(mel.to(dev), flens.to(dev), emel.to(dev), elens.to(dev))
+    if emb:
+        @torch.inference_mode()
+        def encode(mel, flens, enroll_embed):
+            memory, _ = encoder(mel.to(dev), flens.to(dev), enroll_embed.to(dev))
+            return memory, memory.new_zeros((memory.shape[0], 0, memory.shape[-1]))
+    else:
+        @torch.inference_mode()
+        def encode(mel, flens, emel, elens):
+            memory, _, spk_prompt, _ = encoder(
+                mel.to(dev), flens.to(dev), emel.to(dev), elens.to(dev)
+            )
+            return memory, spk_prompt
 
     return encode, run
 
@@ -219,13 +236,13 @@ def decode_dataset(
         return log_mel_spectrogram(x, torch.from_numpy(lens).to(dev), n_mels=n_mels)
 
     pending = None
+    emb = isinstance(encoder, SpkAdapterTSEncoder)
     with torch.inference_mode():
         for batch in dataset.batches(batch_size, shuffle=False, drop_last=False):
             feats, feats_lens = mel(batch["speech"], batch["speech_lens"])
-            efeats, efeats_lens = mel(batch["enroll"], batch["enroll_lens"])
-            memory, spk_prompt = chunked_encode(
-                encode, feats, feats_lens, efeats, efeats_lens, enc_chunk
-            )
+            enroll = ((torch.from_numpy(batch["enroll_embed"]),) if emb
+                      else mel(batch["enroll"], batch["enroll_lens"]))
+            memory, spk_prompt = chunked_encode(encode, (feats, feats_lens, *enroll), enc_chunk)
             if dcfg.ctc_decode_weight > 0:
                 # encoder lengths with the prompt frames, as the encoder's
                 # own: the joint scorer masks the frames beyond each

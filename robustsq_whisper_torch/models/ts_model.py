@@ -1,9 +1,9 @@
 """The target-speaker ASR training model: hybrid CTC/attention loss plus the
 speaker losses.
 
-Mirrors ``TSASRModel`` of the JAX package's ``models/ts_model.py`` for audio
-enrollment (``enroll_type="embedding"`` is ROADMAP A14). ``forward(batch,
-generator, epoch, train)`` runs:
+Mirrors ``TSASRModel`` of the JAX package's ``models/ts_model.py``.
+``forward(batch, generator, epoch, train)`` runs, for audio enrollment
+(``ts.enroll_type == "audio"``):
 
 1. log-mel of the speech and the enrollment, SpecAugment on the speech
    (training, ``use_specaug``);
@@ -15,6 +15,11 @@ generator, epoch, train)`` runs:
    targets], label-smoothed CE and token accuracy;
 6. ``ctc_weight * ctc + (1 - ctc_weight) * att`` plus the speaker losses.
 
+For embedding enrollment (``"embedding"``) the encoder is
+``SpkAdapterTSEncoder`` on the batch's ``enroll_embed`` (B, enroll_size),
+the decoder runs prompt-free (no <|startofprev|>, no prompt), and there is
+no ASP, AAM or Arc-InfoNCE: the loss is the hybrid CTC/attention one alone.
+
 It returns ``(loss, stats)`` with the JAX package's stats keys (loss,
 loss_att, loss_ctc, loss_con, loss_aam, acc, acc_con, acc_aam), detached.
 SpecAugment, dropout and the negative sampling draw from the ``generator``
@@ -23,12 +28,13 @@ passed in (on the batch's device).
 Batch: ``speech`` (B, samples) f32, ``speech_lens`` (B,), ``enroll`` (B,
 samples), ``enroll_lens``, ``text`` (B, L) padded with ``ignore_id``,
 ``text_lens``, ``neg_logits`` (B, B) (1 valid, -10000 same speaker),
-``spk_labels`` (B,).
+``spk_labels`` (B,); with embedding enrollment ``enroll_embed`` (B,
+enroll_size) in place of ``enroll`` and ``enroll_lens``.
 
 ``set_compute_dtype(torch.bfloat16)`` is the training operating point: the
-encoder and decoder compute in bf16 while their layer norms and the loss
-heads (CTC, ASP, AAM) keep f32 parameters, as the JAX model keeps f32
-parameters and computes its blocks in bf16.
+encoder and decoder compute in bf16 while their layer norms (conditional
+ones too) and the loss heads (CTC, ASP, AAM) keep f32 parameters, as the JAX
+model keeps f32 parameters and computes its blocks in bf16.
 """
 
 from __future__ import annotations
@@ -50,7 +56,12 @@ from ..losses.speaker import (
     asp_gamma_schedule,
 )
 from .ts_decoder import TSDecoder
-from .ts_encoder import QFormerTSEncoder, TSEncoderConfig
+from .ts_encoder import (
+    ConditionalLayerNorm,
+    QFormerTSEncoder,
+    SpkAdapterTSEncoder,
+    TSEncoderConfig,
+)
 from .whisper.config import WhisperDims
 from .whisper.modules import LayerNorm
 
@@ -84,7 +95,7 @@ class TSModelConfig:
 
 
 class TSASRModel(nn.Module):
-    """Qformer target-speaker Whisper ASR model with its training losses."""
+    """Target-speaker Whisper ASR model with its training losses."""
 
     def __init__(
         self,
@@ -93,28 +104,32 @@ class TSASRModel(nn.Module):
         cfg: TSModelConfig = TSModelConfig(),
     ):
         super().__init__()
-        if ts.enroll_type != "audio":
-            raise NotImplementedError(
-                "embedding enrollment (SpkAdapterTSEncoder) is ROADMAP A14"
-            )
+        if ts.enroll_type not in ("audio", "embedding"):
+            raise ValueError(f"enroll_type must be audio|embedding, got {ts.enroll_type}")
         self.dims, self.ts, self.cfg = dims, ts, cfg
-        self.encoder = QFormerTSEncoder(dims, ts)
+        self.embedding_enroll = ts.enroll_type == "embedding"
+        encoder_cls = SpkAdapterTSEncoder if self.embedding_enroll else QFormerTSEncoder
+        self.encoder = encoder_cls(dims, ts)
         self.decoder = TSDecoder(
             dims.replace(n_vocab=cfg.vocab_size), startofprev_token=cfg.startofprev,
-            use_spk_prompt=True, remat=ts.remat,
+            use_spk_prompt=not self.embedding_enroll, remat=ts.remat,
             sequence_parallel=ts.sequence_parallel,
         )
         self.ctc = CTCHead(cfg.vocab_size, dims.n_audio_state)
-        self.asp = AttentiveStatisticsPooling(dims.n_audio_state)
-        self.aam = AAMSoftmaxHead(cfg.num_speakers, dims.n_audio_state, cfg.aam_temp)
+        self.asp = self.aam = None
+        if not self.embedding_enroll:
+            self.asp = AttentiveStatisticsPooling(dims.n_audio_state)
+            self.aam = AAMSoftmaxHead(cfg.num_speakers, dims.n_audio_state, cfg.aam_temp)
 
     def set_compute_dtype(self, dtype: torch.dtype) -> "TSASRModel":
         """Encoder and decoder parameters and buffers to ``dtype``, except
         the layer norms, whose values are not rounded; the loss heads stay
         f32."""
         for m in (self.encoder, self.decoder):
+            keep_f32 = {id(s) for c in m.modules()
+                        if isinstance(c, (LayerNorm, ConditionalLayerNorm)) for s in c.modules()}
             for sub in m.modules():
-                if isinstance(sub, LayerNorm):
+                if id(sub) in keep_f32:
                     sub.float()
                     continue
                 for p in sub.parameters(recurse=False):
@@ -123,7 +138,8 @@ class TSASRModel(nn.Module):
                     if b.is_floating_point():
                         setattr(sub, name, b.to(dtype))
         for m in (self.ctc, self.asp, self.aam):
-            m.float()
+            if m is not None:
+                m.float()
         return self
 
     def encode(
@@ -135,11 +151,16 @@ class TSASRModel(nn.Module):
         train: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
-        """Waveforms -> (encoder_out, out_lens, spk_prompt, enroll_embedding)."""
+        """Waveforms -> (encoder_out, out_lens, spk_prompt, enroll_embedding).
+        With embedding enrollment ``enroll`` is the speaker embedding (B,
+        enroll_size), ``enroll_lens`` is unused and the last two are None."""
         n_mels = self.dims.n_mels
         feats, feats_lens = log_mel_spectrogram(speech, speech_lens, n_mels=n_mels)
         if train and self.cfg.use_specaug:
             feats = apply_specaug(feats, feats_lens, self.cfg.specaug, generator)
+        if self.embedding_enroll:
+            x, x_lens = self.encoder(feats, feats_lens, enroll)
+            return x, x_lens, None, None
         enroll_feats, enroll_feats_lens = log_mel_spectrogram(
             enroll, enroll_lens, n_mels=n_mels
         )
@@ -156,20 +177,22 @@ class TSASRModel(nn.Module):
         train: bool = True,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
+        emb = self.embedding_enroll
         encoder_out, out_lens, spk_prompt, enroll_embedding = self.encode(
-            batch["speech"], batch.get("speech_lens"), batch["enroll"],
-            batch.get("enroll_lens"), train=train, generator=generator,
+            batch["speech"], batch.get("speech_lens"),
+            batch["enroll_embed"] if emb else batch["enroll"],
+            None if emb else batch.get("enroll_lens"), train=train, generator=generator,
         )
         stats: Dict[str, torch.Tensor] = {}
         loss = torch.zeros((), device=encoder_out.device)
 
-        # speaker losses: Arc-InfoNCE, then AAM-softmax on the pooled
-        # enrollment
+        # speaker losses (audio enrollment only): Arc-InfoNCE, then
+        # AAM-softmax on the pooled enrollment
         gamma = asp_gamma_schedule(
             epoch, cfg.asp_gamma_initial, cfg.asp_gamma, cfg.asp_gamma_warmup_epochs
         )
         margin = aam_margin_schedule(epoch, cfg.aam_margin, cfg.warm_up_epochs)
-        if cfg.contrastive_weight > 0.0:
+        if not emb and cfg.contrastive_weight > 0.0:
             pooled = self.asp(enroll_embedding, gamma)
             loss_con, stats["acc_con"] = arc_infonce_loss(
                 spk_prompt, pooled, batch["neg_logits"], generator,

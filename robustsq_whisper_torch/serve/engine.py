@@ -8,7 +8,9 @@ by default (half the bytes of f32, exact for WAV/FLAC-sourced audio). A
 DecodeConfig with ``speculative_gamma > 0`` serves by speculative greedy
 decode, self-drafting or with a separate ``draft`` decoder (the JAX
 engine's ``draft_vars``): a distilled one (``train/distill.py``,
-``cli.serve --draft_path``) or a converted JAX draft.
+``cli.serve --draft_path``) or a converted JAX draft. It serves audio
+enrollment (the Qformer encoder), as the JAX engine does; embedding
+enrollment decodes through ``cli.decode``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from .._device import resolve_device
 from ..audio.frontend import log_mel_spectrogram, pcm16_to_float, to_pcm16
 from ..decode.pipeline import build_decode_fns, chunked_encode
 from ..decode.search import DecodeConfig, strip_eot
+from ..models.ts_encoder import QFormerTSEncoder
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +58,9 @@ class TranscriptionEngine:
     ) -> None:
         if cfg.transport not in ("int16", "float32"):
             raise ValueError(f"unknown transport {cfg.transport!r}")
+        if not isinstance(encoder, QFormerTSEncoder):
+            raise ValueError("the engine serves (speech, enrollment audio) pairs through the "
+                             "Qformer encoder; embedding enrollment decodes with cli.decode")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.dcfg = dcfg
@@ -124,11 +130,8 @@ class TranscriptionEngine:
     def infer_staged(self, staged: Tuple, n_items: int) -> List[str]:
         """Encode + decode a ``stage()`` result and detokenize the first
         ``n_items`` rows."""
-        feats, flens, efeats, eflens = staged
         with self._lock:
-            memory, spk_prompt = chunked_encode(
-                self.encode, feats, flens, efeats, eflens, self.cfg.enc_chunk
-            )
+            memory, spk_prompt = chunked_encode(self.encode, staged, self.cfg.enc_chunk)
             tokens = self.run(memory, spk_prompt)[0].cpu().numpy()
             self.compiled = True
         rows = strip_eot(tokens[:n_items], self.dcfg.eot)

@@ -9,8 +9,9 @@ checkpoints by ``valid.acc`` and decodes from their average
   SpecAugment off) under ``torch.no_grad``, batch-weighted mean stats read
   once, after the pass;
 - ``ValidWer``: greedy decode of the first ``n_utts`` validation
-  utterances through the serving modules of ``cli.decode``, built once
-  and loaded with each epoch's weights, scored with the decode scorer;
+  utterances through the serving modules of ``cli.decode`` (the Qformer
+  or the embedding-enrollment encoder, as the model's), built once and
+  loaded with each epoch's weights, scored with the decode scorer;
 - ``NBestTracker``: the n best ``(step, epoch, metric)``, persisted as
   ``nbest.json`` byte for byte as the JAX package writes it;
 - ``average_checkpoints`` / ``write_averaged_checkpoint``: the float64
@@ -38,7 +39,6 @@ import torch
 
 from ..decode.pipeline import decode_dataset, serving_modules
 from ..models.ts_decoder import TSDecoder
-from ..models.ts_encoder import QFormerTSEncoder
 from .checkpoint import read_payload, write_payload
 from .lora import merge_lora
 from .step import TrainConfig, TrainState
@@ -132,7 +132,7 @@ class ValidWer:
         self.dcfg, self.n_utts = dcfg, n_utts
         self.last_hyps: Dict[str, str] = {}
         self.model = model
-        self.modules: Optional[Tuple[QFormerTSEncoder, TSDecoder]] = None
+        self.modules: Optional[Tuple[Any, TSDecoder]] = None
 
     @torch.no_grad()
     def load(self, weights: Tensors) -> None:

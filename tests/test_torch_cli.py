@@ -222,7 +222,6 @@ def test_decode_from_random_init_and_ave(trained, tmp_path):
     [
         ("--model_parallel", "2", "A15"),
         ("--int8_weights", "true", "A10"),
-        ("--enroll_type", "embedding", "A14"),
     ],
 )
 def test_unsupported_flags_stop(flag, value, item, capsys):

@@ -110,8 +110,17 @@ def test_dataset_batches_equal_jax(data_dir, shuffle):
 
 
 def test_dataset_embedding_enrollment_raises(data_dir):
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        pdataset.KaldiTSDataset(data_dir, pload(None), enroll_type="embedding")
+    """Embedding enrollment needs the stage-103 scp: without one both
+    packages raise the same FileNotFoundError; an unknown enrollment type is
+    a ValueError."""
+    msgs = []
+    for mod, load in ((pdataset, pload), (jdataset, jload)):
+        with pytest.raises(FileNotFoundError) as e:
+            mod.KaldiTSDataset(data_dir, load(None), enroll_type="embedding")
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] and "resnet.scp" in msgs[0]
+    with pytest.raises(ValueError, match="audio|embedding"):
+        pdataset.KaldiTSDataset(data_dir, pload(None), enroll_type="xvector")
 
 
 def test_collate_parsers_equal_jax():

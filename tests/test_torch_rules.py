@@ -212,14 +212,15 @@ def test_train_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_training_paths_outside_the_slice_raise():
-    """Sequence parallelism, FSDP / meshes and embedding enrollment raise
-    NotImplementedError naming their ROADMAP item."""
+    """Sequence parallelism and FSDP / meshes raise NotImplementedError
+    naming their ROADMAP item; an enrollment type other than audio and
+    embedding raises ValueError."""
     from robustsq_whisper_torch.train import TrainConfig, create_train_state, make_train_step
 
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         _train_model(sequence_parallel=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        _train_model(enroll_type="embedding")
+    with pytest.raises(ValueError, match="audio|embedding"):
+        _train_model(enroll_type="xvector")
     for kw, cfg in ((dict(), TrainConfig(fsdp=True)), (dict(mesh=object()), TrainConfig())):
         with pytest.raises(NotImplementedError, match="ROADMAP A15"):
             create_train_state(_train_model(), cfg, device="cpu", **kw)

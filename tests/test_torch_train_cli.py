@@ -496,8 +496,7 @@ def test_cli_train_then_decode_use_ave(dirs, tmp_path):
 
 @pytest.mark.parametrize(
     "flag,value,item",
-    [("--n_data", "2", "A15"), ("--n_model", "2", "A15"), ("--fsdp", "true", "A15"),
-     ("--enroll_type", "embedding", "A14")],
+    [("--n_data", "2", "A15"), ("--n_model", "2", "A15"), ("--fsdp", "true", "A15")],
 )
 def test_unsupported_flags_stop(flag, value, item, capsys):
     from robustsq_whisper_torch.cli import train as ptrain
