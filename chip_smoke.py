@@ -5,7 +5,7 @@
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
-1. build the seven CUDA kernel libraries from ``robustsq_whisper_torch/csrc``
+1. build the eight CUDA kernel libraries from ``robustsq_whisper_torch/csrc``
    (one ``nvcc`` per source, all started together) and print the build time;
 2. hold each kernel against its plain PyTorch version at the Whisper-medium
    main-path shapes (batch 4, beam 5), print the errors, the kernel's median
@@ -114,6 +114,26 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``EMBED_PATHS`` must launch and the flash rows must not (the embedding
    encoder's attention is plain, as the JAX package's), and the RTFs are
    printed;
+4f. W8A8 serving (``quantize_weights``, ``--int8_weights``;
+   ``run_w8a8_paths``): ``w8a8_matmul`` against ``qmatmul_plain`` at every
+   (M, K, N) of the slice's paths (the decode step at 4, 20 and 44 rows,
+   the encoder at 4 x 1516 rows), bit for bit, each shape's time (graph
+   replay), bound, ``torch._int_mm``'s time for the product alone (M
+   padded to 32, N to a multiple of 8) and the bf16 ``F.linear`` it
+   replaces; then the engine with W8A8 step weights at medium, greedy over
+   the dense and int8 flat caches, beam 5 eager and deferred and
+   speculative gamma 10 (1-layer self-draft): each transcribe counted, its
+   ``w8a8_matmul`` launches equal to the steps (from the cross kernel's
+   launches) x 193 calls (the speculative path's rounds x (10 draft steps
+   x 9 + 193)) x 2 launches, its run timed beside the dense engine's and
+   its tokens' agreement with the dense path printed; one encode with
+   ``quantize_encoder_weights`` (row 4 launched 24 times, row 1 never,
+   ``w8a8_matmul`` 144 x 2) timed beside the dense encode; inside phase 4b
+   (``run_w8a8_entry_points``), ``cli.decode --int8_weights true`` greedy
+   and at beam 5 over 4b's data dir and ``cli.serve --int8_weights true``
+   answering 8 requests; last of all, ``utils.profiling.op_stats`` over
+   one profiled W8A8 greedy run. Phase 3 holds W8A8 greedy and beam 3 on
+   the card to the CPU's tokens;
 5. training: the three flash-attention training kernels (forward, dQ,
    dK/dV) against their plain versions at the medium training shape
    (batch 8 x 16 heads, T = 1500 + 16, bf16) and with a mask at a smaller
@@ -157,7 +177,8 @@ import time
 import numpy as np
 
 HBM_BYTES_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 SIMT
+# dense tensor-core bf16 and int8; f32 SIMT
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 TPU_SRC = "robustsq_whisper_tpu/ops"
 # the JAX bench's beam sub-record: batch 64 x beam 5 rows, cache length 152
 # at 128 new tokens, live 85 positions at its measured step
@@ -880,6 +901,8 @@ def check_small_agreement(torch, dev) -> None:
         "beam 3 flat int8": (dict(self_kv_bits=8), DecodeConfig(**base, beam_size=3), None),
         "speculative self-draft": (five, DecodeConfig(**spec), None),
         "speculative separate draft": (five, DecodeConfig(**spec), draft),
+        "greedy W8A8": ({}, DecodeConfig(**base, quantize_weights=True), None),
+        "beam 3 W8A8": ({}, DecodeConfig(**base, beam_size=3, quantize_weights=True), None),
     }
     mems = {}
     for where in ("cpu", dev):
@@ -919,11 +942,14 @@ def check_small_agreement(torch, dev) -> None:
         (t_cpu, s_cpu, st_cpu), (t_gpu, s_gpu, st_gpu) = out["cpu"], out[str(dev)]
         s_err = (s_cpu - s_gpu).abs().max().item()
         same_stats = all(torch.equal(st_cpu[k], st_gpu[k]) for k in st_cpu)
+        # W8A8: the attention kernels' f32 noise can move an activation
+        # across a rounding tie and flip one int8 code (tests/test_torch_w8a8.py)
+        tol = 5e-2 if cfg.quantize_weights else 1e-3
         log(f"small agreement, {name} on {src}: score max_abs_err {s_err:.3e} "
-            f"(tol 1e-3, f32); tokens card {t_gpu.tolist()} cpu {t_cpu.tolist()}"
+            f"(tol {tol}, f32); tokens card {t_gpu.tolist()} cpu {t_cpu.tolist()}"
             + (f"; acceptance card {({k: v.tolist() for k, v in st_gpu.items()})} "
                f"equal on the CPU {same_stats}" if st_cpu else ""))
-        ok = ok and s_err <= 1e-3 and torch.equal(t_cpu, t_gpu) and same_stats
+        ok = ok and s_err <= tol and torch.equal(t_cpu, t_gpu) and same_stats
     if not ok:
         raise AssertionError("kernels and plain versions disagree on a small input")
 
@@ -1350,6 +1376,7 @@ def launch_counters():
     from robustsq_whisper_torch.ops import beam_gather as bg
     from robustsq_whisper_torch.ops import decode_attention as xa
     from robustsq_whisper_torch.ops import flash_attention as fa
+    from robustsq_whisper_torch.ops import quant
     from robustsq_whisper_torch.ops import self_attention as sa
 
     return {
@@ -1365,6 +1392,7 @@ def launch_counters():
         "flash_attention": (fa.flash_attention_fwd, "launches"),
         "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq, "launches"),
         "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv, "launches"),
+        "w8a8_matmul": (quant.qmatmul, "launches"),
     }
 
 
@@ -1428,7 +1456,7 @@ def engine_for(torch, dev, enc, dec, batch: int, max_new: int, **cfg):
     dcfg = DecodeConfig(
         max_new_tokens=max_new, eot=st.eot,
         init_tokens=st.sot_sequence("en", "transcribe", True),
-        quantize_cross_kv=True, quantize_weights=False, stop_early=True, **cfg,
+        quantize_cross_kv=True, stop_early=True, **cfg,
     )
     return TranscriptionEngine(
         enc, dec, ByteTokenizer(), dcfg,
@@ -1448,6 +1476,7 @@ OWN_PATH = {  # the path a kernel was ported for, where not greedy's
     "flash_attention": "train full",
     "flash_attention_bwd_dq": "train full",
     "flash_attention_bwd_dkv": "train full",
+    "w8a8_matmul": "greedy W8A8",
 }
 
 
@@ -1911,6 +1940,7 @@ def run_entry_points(torch, dev):
         report["phase_s"] = time.perf_counter() - t_phase
         log(f"entry points on {gpu_info()}: {json.dumps(report)}")
         launches.update(run_remaining_paths(torch, dev, root, data_dir, wavs, enrolls, memory_sd))
+        launches.update(run_w8a8_entry_points(torch, dev, root, data_dir, wavs, enrolls))
     finally:
         whisper_tokenizer.load_tokenizer = load_tokenizer
         shutil.rmtree(root, ignore_errors=True)
@@ -2689,6 +2719,296 @@ def run_embedding_enrollment(torch, dev):
     return launches
 
 
+# (K, N, calls in one full-depth decode step): 24 layers x (self q/k/v/out
+# and cross q/out), fc1 and fc2 a layer, and the tied logits
+W8A8_STEP = ((1024, 1024, 24 * 6), (1024, 4096, 24), (4096, 1024, 24), (1024, 51865, 1))
+W8A8_CALLS = sum(c for _, _, c in W8A8_STEP)  # 193
+W8A8_ROWS = {  # where: the rows M of its products
+    "decoder step, greedy batch 4": 4,
+    "decoder step, beam 5": 20,
+    "speculative verify, 4 x (gamma 10 + 1)": 44,
+    "encoder with qw, 4 x 1516": 4 * 1516,
+}
+
+
+def check_w8a8_kernel(torch, dev):
+    """Phase 4f, the kernel: ``w8a8_matmul`` (through ``qmatmul``) against
+    ``qmatmul_plain`` on the same bf16 activations, int8 weights, f32
+    scales and biases at every (M, K, N) of ``W8A8_ROWS`` x ``W8A8_STEP``
+    (the encoder has no logits): bit for bit. Each shape's kernel time is
+    graph replay (20 calls a graph at the decode rows); the bound is the
+    larger of the bytes (x, the int8 weights, scales, bias and y once) over
+    the memory rate and 2 M N K over the int8 tensor-core rate; the library
+    column is ``torch._int_mm`` for the int8 product alone (M padded to 32,
+    N to a multiple of 8: it takes no fewer rows and no odd N), and
+    ``linear_ms`` the bf16 ``F.linear`` that W8A8 replaces. Returns the
+    kernel row: one greedy decode step's 193 calls, each time the sum over
+    them."""
+    import torch.nn.functional as F
+
+    from robustsq_whisper_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    shapes, step = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                            linear_ms=0.0, t_bytes=0.0, t_ops=0.0)
+    max_err, all_equal = 0.0, True
+    for where, m in W8A8_ROWS.items():
+        for k, n, calls in W8A8_STEP:
+            logits = n == 51865
+            if logits and m > 64:
+                continue
+            x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+            w = torch.randn(n, k, generator=g, device=dev) * 0.03
+            w_q, w_s = quant.quantize_weight(w)
+            bias = None if logits else torch.randn(n, generator=g, device=dev)
+            out_dtype = None if logits else torch.bfloat16
+            got = quant.qmatmul(x, w_q, w_s, bias, out_dtype)
+            ref = quant.qmatmul_plain(x, w_q, w_s, bias, out_dtype)
+            equal = torch.equal(got, ref)
+            err = (got.float() - ref.float()).abs().max().item()
+            max_err, all_equal = max(max_err, err), all_equal and equal
+            n_bytes = m * k * 2 + n * k + 4 * n * (1 if logits else 2) + m * n * (4 if logits else 2)
+            t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, 2 * m * n * k / PEAK_OPS_S["int8"] * 1e3
+            b_ms, b_by = bound(n_bytes, 2 * m * n * k, "int8")
+            per_graph = 20 if m <= 64 else 1
+            ms = time_ms(torch, lambda: quant.qmatmul(x, w_q, w_s, bias, out_dtype), calls=per_graph)
+            plain_ms = time_ms(torch, lambda: quant.qmatmul_plain(x, w_q, w_s, bias, out_dtype), 5)
+            xq = torch.randint(-127, 128, (max(m, 32), k), generator=g, device=dev,
+                               dtype=torch.int8)
+            wq_t = F.pad(w_q, (0, 0, 0, -n % 8)).t()  # (K, N8), column-major
+            library_ms = time_ms(torch, lambda: torch._int_mm(xq, wq_t), calls=per_graph)
+            wb, bb = w.bfloat16(), None if bias is None else bias.bfloat16()
+            linear_ms = time_ms(torch, lambda: F.linear(x, wb, bb), calls=per_graph)
+            row = dict(where=where, m=m, k=k, n=n, equal=equal, max_abs_err=err, ms=ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, share=b_ms / ms,
+                       library_ms=library_ms, linear_ms=linear_ms)
+            shapes.append(row)
+            log(f"w8a8_matmul {where}: M {m} K {k} N {n}: equal to plain {equal} "
+                f"(max_abs_err {err}) ms {ms:.4f} bound_ms {b_ms:.5f} ({b_by}, share "
+                f"{b_ms / ms:.3f}) plain_ms {plain_ms:.4f} int_mm_ms {library_ms:.4f} "
+                f"linear_bf16_ms {linear_ms:.4f}")
+            if m == 4:  # the greedy step's calls of this shape
+                for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                                 ("linear_ms", linear_ms), ("t_bytes", t_bytes),
+                                 ("t_ops", t_ops)):
+                    step[key] += calls * val
+            del x, w, w_q, w_s, bias, got, ref, xq, wq_t, wb, bb
+    torch.cuda.empty_cache()
+    t_bytes, t_ops = step.pop("t_bytes"), step.pop("t_ops")
+    step["bound_ms"], step["bound_by"] = max(t_bytes, t_ops), (
+        "bytes" if t_bytes >= t_ops else "operations")
+    row = dict(
+        name="w8a8_matmul", route="cuda", source="robustsq_whisper_torch/csrc/w8a8_matmul.cu",
+        replaces=f"{TPU_SRC}/quant.py:64", max_abs_err=max_err, tol=0.0,
+        shape="one greedy decode step at batch 4: 193 calls (M 4), times summed",
+        calls_per_step=W8A8_CALLS, launches_per_call=quant.LAUNCHES_PER_CALL,
+        shapes=shapes, **step,
+    )
+    log(f"kernel w8a8_matmul, one greedy step's {W8A8_CALLS} calls at batch 4 on {gpu_info()}: "
+        f"ms {row['ms']:.4f} bound_ms {row['bound_ms']:.4f} ({row['bound_by']}, share "
+        f"{row['bound_ms'] / row['ms']:.3f}) plain_ms {row['plain_ms']:.4f} int_mm_ms "
+        f"{row['library_ms']:.4f} linear_bf16_ms {row['linear_ms']:.4f}")
+    if not all_equal:
+        raise AssertionError("w8a8_matmul differs from qmatmul_plain")
+    return row
+
+
+W8A8_PATHS = {  # path: (decoder flags, config)
+    "greedy W8A8": ({}, {}),
+    "greedy W8A8 self_kv_bits=8": (dict(self_kv_bits=8), {}),
+    "beam 5 W8A8 eager": ({}, dict(beam_size=5)),
+    "beam 5 W8A8 defer_reorder=8": ({}, dict(beam_size=5, defer_reorder=8)),
+    "speculative W8A8 gamma=10": (dict(flat_self_cache=False),
+                                  dict(speculative_gamma=10, draft_layers=1)),
+}
+
+
+def w8a8_expected(counts, cfg) -> int:
+    """``w8a8_matmul`` launches a transcribe must show, from the cross
+    kernel's launches: greedy and beam run one cross launch a layer a step,
+    so steps = launches / 24 and each step makes 193 calls; speculative
+    decode runs the cross kernel in its 1-layer draft's steps only (the
+    verify chunk reads the cross K/V in plain PyTorch), gamma a round, and
+    a round makes gamma draft steps of 9 calls (8 matmuls and the logits)
+    and one verify of 193."""
+    from robustsq_whisper_torch.ops.quant import LAUNCHES_PER_CALL
+
+    gamma = cfg.get("speculative_gamma", 0)
+    if gamma:
+        rounds = counts["decode_cross_attention"] // gamma
+        return rounds * (gamma * 9 + W8A8_CALLS) * LAUNCHES_PER_CALL
+    key = "decode_cross_attention_grouped" if cfg.get("beam_size", 1) > 1 else "decode_cross_attention"
+    return counts[key] // 24 * W8A8_CALLS * LAUNCHES_PER_CALL
+
+
+def run_w8a8_paths(torch, dev, models, batch: int, max_new: int):
+    """Phase 4f: the kernel check (``check_w8a8_kernel``), the engine's
+    W8A8 paths at medium and one encode with W8A8 blocks. Returns (kernel
+    row, {path: launches}, (greedy W8A8 engine, memory, prompt))."""
+    from robustsq_whisper_torch.decode.pipeline import chunked_encode
+    from robustsq_whisper_torch.models.ts_encoder import quantize_encoder_weights
+
+    t_phase = time.perf_counter()
+    row = check_w8a8_kernel(torch, dev)
+    dims, enc, dec = models
+    items = synthetic_pairs(batch, seed=0)
+    launches, report = {}, {}
+    memory = prompt = greedy = None
+    for path, (flags, cfg) in W8A8_PATHS.items():
+        d = decoder_with(dec, **flags) if flags else dec
+        engine = engine_for(torch, dev, enc, d, batch, max_new, quantize_weights=True, **cfg)
+        wall, counts = counted_transcribe(torch, engine, items, path, ("w8a8_matmul",))
+        launches[path] = counts
+        want = w8a8_expected(counts, cfg)
+        if memory is None:
+            memory, prompt = chunked_encode(engine.encode, engine.stage(items), 0)
+            greedy = (engine, memory, prompt)
+        dense = engine_for(torch, dev, enc, d, batch, max_new, **cfg)
+        runs = {}
+        for name, e in (("w8a8", engine), ("dense", dense)):
+            e.run(memory, prompt)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens = e.run(memory, prompt)[0]
+            torch.cuda.synchronize()
+            runs[name] = (time.perf_counter() - t0, tokens.cpu())
+        agree = (runs["w8a8"][1] == runs["dense"][1]).float().mean().item()
+        report[path] = {"transcribe_ms": wall * 1e3, "run_ms": runs["w8a8"][0] * 1e3,
+                        "dense_run_ms": runs["dense"][0] * 1e3, "token_agreement": agree,
+                        "w8a8_launches": counts["w8a8_matmul"], "expected": want}
+        log(f"{path} on {gpu_info()}: transcribe {wall * 1e3:.1f} ms; run {runs['w8a8'][0] * 1e3:.1f} "
+            f"ms against the dense engine's {runs['dense'][0] * 1e3:.1f} ms; token agreement "
+            f"with the dense path {agree:.4f}; w8a8_matmul launches {counts['w8a8_matmul']} "
+            f"(expected {want})")
+        if counts["w8a8_matmul"] != want:
+            raise AssertionError(f"{path}: {counts['w8a8_matmul']} w8a8_matmul launches, "
+                                 f"expected {want}")
+        if runs["w8a8"][1].shape != (batch, max_new):
+            raise AssertionError(f"{path}: tokens of shape {tuple(runs['w8a8'][1].shape)}")
+        del engine, dense, d
+    torch.cuda.empty_cache()
+
+    # one encode with W8A8 blocks: its attention takes attend (row 4)
+    engine, memory, prompt = greedy
+    staged = engine.stage(items)
+    qw_enc = quantize_encoder_weights(enc)
+    with torch.inference_mode():
+        enc(*staged, qw=qw_enc)  # warm
+        (out_q, *_), wall, counts = counted(torch, lambda: enc(*staged, qw=qw_enc))
+        out_d = enc(*staged)[0]
+        q_ms = time_events_ms(torch, lambda: enc(*staged, qw=qw_enc), reps=3)
+        d_ms = time_events_ms(torch, lambda: enc(*staged), reps=3)
+    launches["encode W8A8"] = counts
+    dev_err = ((out_q.float() - out_d.float()).abs().max() / out_d.float().std()).item()
+    report["encode W8A8"] = {"ms": q_ms, "dense_ms": d_ms, "max_dev_of_std": dev_err,
+                             "launches": counts}
+    log(f"encode with quantize_encoder_weights on {gpu_info()}: {q_ms:.2f} ms against the "
+        f"dense encode's {d_ms:.2f} ms (batch {batch}, events); largest deviation from the "
+        f"dense output {dev_err:.4f} of its std; launches flash_attention "
+        f"{counts['flash_attention']} flash_attention_tmaj {counts['flash_attention_tmaj']} "
+        f"w8a8_matmul {counts['w8a8_matmul']}")
+    want = {"flash_attention": 24, "flash_attention_tmaj": 0,
+            "w8a8_matmul": 24 * 6 * row["launches_per_call"]}
+    if any(counts[k] != v for k, v in want.items()) or not torch.isfinite(out_q.float()).all():
+        raise AssertionError(f"W8A8 encode: launches {counts}, expected {want}")
+    del qw_enc, out_q, out_d
+    torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"W8A8 paths on {gpu_info()}: {json.dumps(report)}")
+    return row, launches, greedy
+
+
+def run_w8a8_entry_points(torch, dev, root, data_dir, wavs, enrolls):
+    """Phase 4f, the entry points: ``cli.decode --int8_weights true``
+    greedy and at beam 5 over phase 4b's data dir, checkpoint and yamls,
+    and ``cli.serve --int8_weights true`` answering 8 concurrent requests,
+    each equal to its engine's ``transcribe``. Returns {path: launches}."""
+    import threading
+
+    from robustsq_whisper_torch.cli import decode as cli_decode
+    from robustsq_whisper_torch.cli import serve as cli_serve
+    from robustsq_whisper_torch.data import kaldi_io
+    from robustsq_whisper_torch.serve import audio_from_bytes, make_server
+
+    launches, report = {}, {}
+    for beam in (1, 5):
+        path = f"cli.decode --int8_weights beam {beam}"
+        out = os.path.join(root, f"decode_int8_beam{beam}")
+        argv = ["--config", ENTRY_CONFIG, "--inference_config",
+                os.path.join(root, f"decode_beam{beam}.yaml"), "--data_dir", data_dir,
+                "--expdir", os.path.join(root, "exp"), "--output_dir", out,
+                "--cross_kv_bits", "4", "--batch_size", "4", "--int8_weights", "true",
+                "--tokenizer_assets", ENTRY_RANKS, "--device", str(dev)]
+        rc, wall, counts = counted(torch, lambda: cli_decode.main(argv))
+        launches[path] = counts
+        hyps = kaldi_io.read_scp(os.path.join(out, "text"))
+        with open(os.path.join(out, "score.txt")) as f:
+            scores = dict(line.split() for line in f)
+        report[path] = {"main_s": wall, "rtf": float(scores["rtf"])}
+        log(f"{path}: rc {rc}, main {wall:.2f} s, RTF {float(scores['rtf']):.2f} (decode "
+            f"loop) on {gpu_info()}; launches {counts}")
+        if rc != 0 or counts["w8a8_matmul"] == 0 or len(hyps) != 8:
+            raise AssertionError(f"{path}: rc {rc}, {len(hyps)} hypotheses, launches {counts}")
+
+    args = cli_serve.parse_args([
+        "--config", ENTRY_CONFIG, "--inference_config", os.path.join(root, "decode_beam1.yaml"),
+        "--expdir", os.path.join(root, "exp"), "--batch_size", "4", "--max_wait_ms", "15",
+        "--cross_kv_bits", "4", "--tokenizer_assets", ENTRY_RANKS, "--device", str(dev),
+        "--int8_weights", "true",
+    ])
+    engine, info = cli_serve.build_engine(args)
+    engine.warmup()
+    server, batcher = make_server(engine, "127.0.0.1", 0, args.max_wait_ms, info=info)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        answers, wall, counts = counted(torch, lambda: serve_requests(
+            server.server_address[1], list(wavs.values()), list(enrolls.values())))
+        launches["cli.serve --int8_weights"] = counts
+    finally:
+        server.shutdown()
+        batcher.close()
+        server.server_close()
+        thread.join(timeout=30)
+    for (utt, w), e, a in zip(wavs.items(), enrolls.values(), answers):
+        with open(w, "rb") as f, open(e, "rb") as g:
+            want = engine.transcribe([(audio_from_bytes(f.read()), audio_from_bytes(g.read()))])[0]
+        if a["text"] != want:
+            raise AssertionError(f"cli.serve --int8_weights {utt}: {a['text']!r} != {want!r}")
+    lat = sorted(a["latency_ms"] for a in answers)
+    report["cli.serve --int8_weights"] = {"wall_s": wall, "p50_ms": statistics.median(lat),
+                                          "max_ms": lat[-1]}
+    log(f"cli.serve --int8_weights: 8 concurrent requests in {wall:.2f} s, latency p50 "
+        f"{statistics.median(lat):.1f} ms max {lat[-1]:.1f} ms on {gpu_info()}, texts equal "
+        f"engine.transcribe; launches {counts}")
+    if counts["w8a8_matmul"] == 0 or not engine.dcfg.quantize_weights:
+        raise AssertionError(f"cli.serve --int8_weights did not run W8A8: {counts}")
+    del engine
+    torch.cuda.empty_cache()
+    log(f"W8A8 entry points on {gpu_info()}: {json.dumps(report)}")
+    return launches
+
+
+def profile_w8a8(torch, greedy) -> None:
+    """Phase 4f, last: ``utils.profiling.trace`` around one W8A8 greedy run
+    and ``op_stats`` over its trace: the top device kernels."""
+    import shutil
+
+    from robustsq_whisper_torch.ops._build import BUILD
+    from robustsq_whisper_torch.utils.profiling import op_stats, top_ops, trace
+
+    engine, memory, prompt = greedy
+    trace_dir = str(BUILD / "trace_w8a8_greedy")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    with trace(trace_dir):
+        engine.run(memory, prompt)
+    stats = op_stats(trace_dir)
+    log(f"op_stats of one W8A8 greedy run on {gpu_info()} (device ms, calls):\n"
+        + top_ops(stats, 8))
+    if not any("w8a8_gemm_kernel" in name for name in stats):
+        raise AssertionError("the profiled W8A8 run shows no w8a8_gemm_kernel")
+
+
 # the self-cache read kernels' names: the shared read's, and those of the
 # two kernels it replaced (to profile an older tree)
 SELF_KERNELS = ("self_cache_read_kernel", "decode_self_kernel", "settled_kernel")
@@ -2753,6 +3073,8 @@ def main() -> int:
     beam_launches, beam_run = run_beam_paths(torch, dev, models, batch, max_new)
     layout_launches = run_layout_paths(torch, dev, models, batch, max_new)
     asr_launches = run_asr_paths(torch, dev, models, batch, max_new)
+    w8a8_row, w8a8_launches, w8a8_greedy = run_w8a8_paths(torch, dev, models, batch, max_new)
+    rows.append(w8a8_row)
     entry_launches = run_entry_points(torch, dev)
     train_entry_launches, cli_rate = run_train_entry(torch, dev)
     embed_launches = run_embedding_enrollment(torch, dev)
@@ -2761,8 +3083,10 @@ def main() -> int:
         f"training wall) {cli_rate:.2f}, make_train_step in memory (lora, fastest step) "
         f"{train_rates['train lora']:.2f}")
     profile_runs(torch, greedy, beam_run, train_run)
+    profile_w8a8(torch, w8a8_greedy)
     by_path = {"greedy": greedy_launches, **beam_launches, **layout_launches, **asr_launches,
-               **entry_launches, **train_entry_launches, **embed_launches, **train_launches}
+               **w8a8_launches, **entry_launches, **train_entry_launches, **embed_launches,
+               **train_launches}
     for r in rows:  # launches on the path this row's kernel was ported for
         r["launches"] = by_path[OWN_PATH.get(r["name"], "greedy")][r["name"]]
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}

@@ -25,6 +25,10 @@ the config's seeded random init. Besides greedy and beam search:
   writes a ``segments`` file beside ``text``;
 - ``--long_audio true`` decodes every utterance at full length in
   ``--chunk_seconds`` windows (``decode/long_audio.py``);
+- ``--int8_weights true`` serves the token steps with W8A8 step weights
+  (``ops/quant.py``; the ``w8a8_matmul`` kernel on the card), quantized
+  once when the decoder is built; the prefill stays dense, and joint CTC
+  decode resets it (with a warning), as the JAX CLI does;
 - ``--enroll_type embedding`` decodes with the embedding-enrollment
   encoder and a prompt-free decoder from the stage-103
   ``{enroll_prefix}.scp`` of the data dir (greedy, beam, speculative and
@@ -49,8 +53,6 @@ import torch
 UNSUPPORTED = (
     ("--model_parallel", lambda a: a.model_parallel > 1,
      "tensor-parallel serving is ROADMAP A15 (multi-GPU)"),
-    ("--int8_weights", lambda a: a.int8_weights,
-     "W8A8 step weights are ROADMAP A10"),
 )
 
 
@@ -196,6 +198,7 @@ def decode_config(exp, args, **extra):
         timestamp_begin=st.timestamp_begin,
         eot=exp.model.eos,
         init_tokens=init,
+        quantize_weights=bool(args.int8_weights),
         **extra,
     )
     if args.prefill_quantized:  # prefill on the quantized cross K/V

@@ -13,7 +13,8 @@ Usage::
 The flags are the JAX package's ``cli.serve`` flags plus ``--device``
 (default ``cuda``); the weights come as in ``cli.decode``.
 ``--speculative_gamma G`` serves by speculative greedy decode, with a
-self-draft or, with ``--draft_path``, a distilled draft (``cli.distill``).
+self-draft or, with ``--draft_path``, a distilled draft (``cli.distill``);
+``--int8_weights true`` serves the token steps with W8A8 step weights.
 ``build_engine(args)`` builds the ``TranscriptionEngine`` without serving,
 so a caller can put ``serve.server.make_server`` over it in its own thread.
 """
@@ -25,9 +26,7 @@ import logging
 
 from .decode import UNSUPPORTED, check_supported, str2bool
 
-SERVE_UNSUPPORTED = tuple(u for u in UNSUPPORTED if u[0] in (
-    "--model_parallel", "--int8_weights",
-)) + (
+SERVE_UNSUPPORTED = UNSUPPORTED + (
     ("--compile_cache", lambda a: bool(a.compile_cache),
      "a persistent XLA compilation cache has no counterpart here (the "
      "kernels are built once into robustsq_whisper_torch/_build)"),

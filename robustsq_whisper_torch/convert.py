@@ -27,6 +27,12 @@ layer norms ``attn_cln`` / ``mlp_cln`` (``scale``, ``bias`` and the
 ``flax_speaker_to_state_dict`` maps the speaker ResNet's variables
 (``params`` and ``batch_stats``).
 
+``flax_qw_to_port`` carries the JAX package's W8A8 weights
+(``quantize_step_weights`` / ``quantize_encoder_weights``) over to the
+port's form: each layer-stacked ``(L, in, out)`` int8 kernel becomes L
+``(out, in)`` tensors, its scales and biases split the same way, and the
+tied embedding's ``emb`` comes over as it is.
+
 ``flax_lora_to_port`` carries a JAX LoRA tree ``{kernel path: {"a": ([L,]
 in, r), "b": ([L,] r, out)}}`` over to the port's per-layer factors, keyed
 by the adapted weight's name (``train/lora.py``).
@@ -106,6 +112,30 @@ def flax_lora_to_port(lora: Any) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]
             out[".".join(parts + ["weight"])] = (
                 torch.from_numpy(np.array(a_i)), torch.from_numpy(np.array(b_i)),
             )
+    return out
+
+
+def flax_qw_to_port(qw: Any) -> Dict[str, Any]:
+    """JAX W8A8 weights ``{"layers": {name: ... (w_q (L, in, out) int8,
+    scale (L, out), bias (L, out) or None)}[, "emb": (int8 (V, d), (V,))]}``
+    -> the port's ``{"layers": [L dicts of (w_q (out, in), scale, bias)][,
+    "emb": ...]}`` (``whisper.modules.quantize_step_weights``)."""
+    t = lambda x: torch.from_numpy(np.array(x))  # owned copy, dtype kept
+
+    def layer(tree: Any, i: int) -> Any:
+        if isinstance(tree, (tuple, list)):
+            w_q, scale, bias = tree
+            return (t(np.asarray(w_q)[i].T), t(np.asarray(scale)[i]),
+                    None if bias is None else t(np.asarray(bias)[i]))
+        return {k: layer(v, i) for k, v in tree.items()}
+
+    tree = qw["layers"]
+    while not isinstance(tree, (tuple, list)):  # down to one (w_q, scale, bias)
+        tree = next(iter(tree.values()))
+    n_layers = np.asarray(tree[0]).shape[0]
+    out: Dict[str, Any] = {"layers": [layer(qw["layers"], i) for i in range(n_layers)]}
+    if "emb" in qw:
+        out["emb"] = tuple(t(x) for x in qw["emb"])
     return out
 
 

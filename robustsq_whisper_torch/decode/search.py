@@ -31,8 +31,10 @@ the Whisper timestamp rules (``decode/timestamps.py``), as the JAX greedy
 decoder does; beam search and speculative decode refuse it. Joint
 CTC/attention decode is ``decode/joint.py`` (``build_decode_fns`` routes
 ``ctc_decode_weight > 0`` there); these builders refuse it rather than
-decode attention-only. W8A8 step weights are a later slice and raise
-``NotImplementedError``.
+decode attention-only. ``quantize_weights`` quantizes the decoder's step
+weights once, when the decoder is built (``_step_weights``), and every
+token step (greedy, beam eager and deferred) runs them W8A8; the prefill
+stays dense.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from typing import Callable, List, Tuple
 import torch
 
 from .._device import resolve_device
-from ..models.ts_decoder import TSDecoder
+from ..models.ts_decoder import TSDecoder, quantize_step_weights
 from ..ops.beam_gather import CHUNK, beam_reorder_cache
 from .timestamps import apply_timestamp_rules, update_timestamp_state
 
@@ -115,13 +117,17 @@ def _check_config(dec: TSDecoder, cfg: DecodeConfig) -> None:
             "timestamp decoding needs the timestamp tokens (from id "
             f"{cfg.timestamp_begin}) in the vocabulary of {dec.dims.n_vocab}"
         )
-    if cfg.quantize_weights:
-        raise NotImplementedError("W8A8 step weights are ROADMAP A10")
     if cfg.prefill_quantized and not cfg.quantize_cross_kv:
         raise ValueError(
             "prefill_quantized requires quantize_cross_kv=True: the option "
             "prefills on the quantized cross K/V"
         )
+
+
+def _step_weights(dec: TSDecoder, cfg: DecodeConfig):
+    """The int8 step weights of ``dec`` (already on its device), quantized
+    once at build time, or None without ``quantize_weights``."""
+    return quantize_step_weights(dec) if cfg.quantize_weights else None
 
 
 def build_greedy_decoder(
@@ -142,6 +148,7 @@ def build_greedy_decoder(
     dev = resolve_device(device)
     _check_config(dec, cfg)
     dec.to(dev).eval()
+    qw = _step_weights(dec, cfg)
 
     @torch.inference_mode()
     def run(memory: torch.Tensor, spk_prompt: torch.Tensor):
@@ -194,7 +201,7 @@ def build_greedy_decoder(
                 )
             if i + 1 == max_new or (cfg.stop_early and bool(done.all())):
                 break  # the next step's logits would go unused
-            logits, cache = dec.step(tok[:, None], pos, cache, cross)
+            logits, cache = dec.step(tok[:, None], pos, cache, cross, qw=qw)
             pos += 1
         return tokens, score
 
@@ -246,6 +253,7 @@ def build_beam_decoder(
     _check_config(dec, cfg)
     dec.to(dev).eval()
     vocab = dec.dims.n_vocab
+    qw = _step_weights(dec, cfg)
 
     @torch.inference_mode()
     def run(memory: torch.Tensor, spk_prompt: torch.Tensor):
@@ -351,7 +359,8 @@ def build_beam_decoder(
             else:  # positions [0, base + i) hold data
                 cache = beam_reorder_cache(cache, gather_idx, live=base + i, time_len=t_pad)
             logits, cache = dec.step(
-                tok.reshape(-1, 1), pos, cache, cross, beam_group=group, **step_kw
+                tok.reshape(-1, 1), pos, cache, cross, beam_group=group, qw=qw,
+                **step_kw,
             )
             pos += 1
 

@@ -17,7 +17,10 @@ Mirrors the JAX package's ``decode/speculative.py``. Each round:
    choices plus the target's next token; each row advances on its own.
 
 The output is the target's greedy transcript, token for token: every
-emitted token is an argmax of full-model logits. The rounds run eagerly;
+emitted token is an argmax of full-model logits. With ``quantize_weights``
+the target's steps run its W8A8 step weights, and the draft's steps the
+first ``draft_layers`` layers of them (the self-draft, sharing the
+embedding's) or its own (a separate draft). The rounds run eagerly;
 the loop reads ``done.all()`` once a round, the only value it takes back
 to the host (positions, counts and acceptances stay on the device).
 """
@@ -30,8 +33,8 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
-from ..models.ts_decoder import TSDecoder
-from .search import DecodeConfig, _check_config
+from ..models.ts_decoder import TSDecoder, quantize_step_weights
+from .search import DecodeConfig, _check_config, _step_weights
 
 NEG = -1e30  # the masked logit
 
@@ -116,6 +119,10 @@ def build_speculative_decoder(
     if separate:
         draft.to(dev).eval()
     dmod = draft_decoder(dec, d, draft)
+    qw = dqw = _step_weights(dec, cfg)
+    if qw is not None:  # a separate draft's own, or the target's first d layers
+        dqw = (quantize_step_weights(dmod) if separate
+               else {"layers": qw["layers"][:d], "emb": qw["emb"]})
     max_new, min_new, eot = cfg.max_new_tokens, cfg.min_new_tokens, cfg.eot
 
     def mask_eot(logits: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -173,7 +180,7 @@ def build_speculative_decoder(
             # whose cache must cover the bonus position)
             tok, p, ei, drafts = pending, pos, count, []
             for _ in range(g + 1 if separate else g):
-                lg, dcache = dmod.step(tok[:, None], p, dcache, dcross)
+                lg, dcache = dmod.step(tok[:, None], p, dcache, dcross, qw=dqw)
                 tok = mask_eot(lg, ei).argmax(dim=-1)
                 drafts.append(tok)
                 p, ei = p + 1, ei + 1
@@ -181,7 +188,7 @@ def build_speculative_decoder(
 
             # verify: one causal chunk through the full decoder
             ver_in = torch.cat([pending[:, None], drafts], dim=1)
-            vlogits, cache = dec.step(ver_in, pos, cache, cross)  # (b, g+1, V)
+            vlogits, cache = dec.step(ver_in, pos, cache, cross, qw=qw)  # (b, g+1, V)
             vlogits = mask_eot(vlogits, count[:, None] + j)
             vlogp = torch.log_softmax(vlogits, dim=-1)
             t = vlogits.argmax(dim=-1)  # (b, g+1)

@@ -6,7 +6,8 @@ teacher-forced and causally masked, and returns the logits of the target
 positions only. For decoding, the prefill runs [<|startofprev|>; speaker
 prompt; init tokens] once over the KV cache, then ``step`` extends one token
 at a time (or M tokens at per-row positions, the speculative verify, on the
-5-D cache).
+5-D cache), with the W8A8 step weights of ``quantize_step_weights`` when
+given them.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from torch import nn
 
 from .whisper.config import WhisperDims
 from .whisper.modules import TextDecoder
+from .whisper.modules import quantize_step_weights as _quantize_step_weights
 
 STARTOFPREV = 50361  # <|startofprev|>
 
@@ -108,11 +110,19 @@ class TSDecoder(nn.Module):
         row_map=None,  # deferred beam reorder: physical row per logical row
         settled=None,  # deferred beam reorder: settled-prefix length
         defer_window: int = 8,
+        qw=None,  # int8 step weights (quantize_step_weights)
     ):
         """token: (batch, M) ids; pos: device int32 scalar position, or a
         (batch,) vector of per-row positions of the first token."""
         return self.decoder.step(
             self.decoder.embed(token), pos, cache, cross,
             beam_group=beam_group, row_map=row_map, settled=settled,
-            defer_window=defer_window,
+            defer_window=defer_window, qw=qw,
         )
+
+
+def quantize_step_weights(dec: TSDecoder) -> dict:
+    """Int8 decode-step weights of a TSDecoder
+    (``whisper.modules.quantize_step_weights``), computed once when a
+    decoder is built; prefill and training keep the dense weights."""
+    return _quantize_step_weights(dec.decoder)

@@ -8,7 +8,9 @@ Mirrors the JAX package's ``models/ts_encoder.py``:
   prompt concatenated ahead of the speech frames, then the Whisper blocks
   and ``ln_post``. ``train=True`` turns on the Qformer's dropout (masks
   from the ``generator`` passed in); ``remat`` recomputes the Whisper
-  blocks in the backward.
+  blocks in the backward; ``qw`` (``quantize_encoder_weights``) runs the
+  Whisper blocks W8A8 for inference (conv stems, Qformer and prompt
+  projection stay dense).
 - ``SpkAdapterTSEncoder`` (embedding enrollment, the recipe's stage-103
   ``resnet.scp``): a fixed speaker embedding enters at block 0, through
   ``SpkAdapter`` (``cat``, ``additive`` or ``film``, with the optional
@@ -34,6 +36,7 @@ from torch import nn
 from .qformer import QFormerAdapter, QformerConfig
 from .whisper.config import WhisperDims
 from .whisper.modules import AudioEncoder, LayerNorm, Linear, _run_block
+from .whisper.modules import quantize_encoder_weights as _quantize_encoder_weights
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +111,7 @@ class QFormerTSEncoder(nn.Module):
         enroll_feats_lens: Optional[torch.Tensor],
         train: bool = False,
         generator: Optional[torch.Generator] = None,
+        qw: Optional[dict] = None,  # W8A8 block weights (inference)
     ):
         max_ctx = self.dims.n_audio_ctx
         x = self.encoder.conv_stem(feats, add_positions=True)
@@ -130,7 +134,7 @@ class QFormerTSEncoder(nn.Module):
             x = torch.cat([spk_prompt.to(x.dtype), x], dim=1)
             if x_lens is not None:
                 x_lens = x_lens + self.ts.num_query_tokens
-        x = self.encoder.run_blocks(x)
+        x = self.encoder.run_blocks(x, qw=qw)
         return x, x_lens, spk_prompt, enroll_embedding
 
     @property
@@ -274,3 +278,10 @@ class SpkAdapterTSEncoder(nn.Module):
         olens = (None if feats_lens is None
                  else AudioEncoder.output_lengths(feats_lens, self.dims.n_audio_ctx))
         return x, olens
+
+
+def quantize_encoder_weights(enc: QFormerTSEncoder) -> dict:
+    """Int8 W8A8 weights of a ``QFormerTSEncoder``'s Whisper blocks
+    (``whisper.modules.quantize_encoder_weights``), for ``forward(...,
+    qw=)``. Inference only."""
+    return _quantize_encoder_weights(enc.encoder)

@@ -37,8 +37,17 @@ int8 dots run in f32 on the int8 values, exact because every sum stays
 below 2^24 (127 * 127 * 64 for a score, 127 * 127 * the live positions for
 a V sum: the masked weights quantize to 0).
 
-Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): W8A8 step weights and sequence parallelism.
+W8A8 serving: ``quantize_step_weights`` and ``quantize_encoder_weights``
+quantize every dense matmul of the decode step (and the tied logits) or of
+the encoder blocks to int8 once; ``qw`` then routes those matmuls through
+``ops.quant.qmatmul`` (the ``w8a8_matmul`` kernel on the card): every
+decode step layout, the multi-token verify, and the encoder blocks, whose
+self-attention then takes ``attend`` (the row-major flash route) rather
+than the transposed one, as the JAX package's does. Cross-attention K/V,
+prefill and training stay dense.
+
+Sequence parallelism is not in this port (``NotImplementedError`` naming
+ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -57,7 +66,7 @@ from ...ops.decode_attention import (
     unpack_int4,
 )
 from ...ops.flash_attention import flash_attention, flash_attention_tmaj
-from ...ops.quant import quantize_activation
+from ...ops.quant import qmatmul, quantize_activation, quantize_weight
 from ...ops.self_attention import (
     BLOCK_POS,
     decode_self_attention,
@@ -111,6 +120,66 @@ class Linear(nn.Linear):
 
 def gelu(x: torch.Tensor, approx: bool) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if approx else "none")
+
+
+def _proj(lin: Linear, x: torch.Tensor, w=None) -> torch.Tensor:
+    """``lin(x)``, or with ``w`` = (int8 weight, scales, f32 bias or None)
+    the W8A8 product of ``x`` cast to ``lin``'s dtype, in that dtype."""
+    x = x.to(lin.weight.dtype)
+    return lin(x) if w is None else qmatmul(x, *w, out_dtype=x.dtype)
+
+
+def _quant_dense(lin: Linear):
+    """Per-output-channel int8 (weight, f32 scales, f32 bias or None) of one
+    Linear, its LoRA factors merged."""
+    w_q, scale = quantize_weight(lin.effective_weight())
+    bias = None if lin.bias is None else lin.bias.detach().to(torch.float32, copy=True)
+    return w_q, scale, bias
+
+
+def _quant_attn(attn: "MultiHeadAttention", names) -> dict:
+    return {n: _quant_dense(getattr(attn, n)) for n in names}
+
+
+@torch.no_grad()
+def quantize_step_weights(decoder: "TextDecoder") -> dict:
+    """Int8 weights of every dense matmul the decode ``step`` runs:
+    ``{"layers": [per block {"attn": q/k/v/out, "cross": q/out, "fc1",
+    "fc2"}], "emb": (int8 (n_vocab, n_state), f32 (n_vocab,))}``, each
+    matmul's entry (int8 (out, in), f32 (out,) scales, f32 bias or None for
+    the key). The cross K/V projections run on the encoder memory once a
+    decode (and are quantized by ``quantize_cross``); the tied embedding is
+    quantized per row for the logits. Computed once when a decoder is
+    built; prefill and training keep the dense weights."""
+    layers = [
+        {
+            "attn": _quant_attn(b.attn, ("query", "key", "value", "out")),
+            "cross": _quant_attn(b.cross_attn, ("query", "out")),
+            "fc1": _quant_dense(b.mlp_fc1),
+            "fc2": _quant_dense(b.mlp_fc2),
+        }
+        for b in decoder.blocks
+    ]
+    return {"layers": layers, "emb": quantize_weight(decoder.token_embedding.weight)}
+
+
+@torch.no_grad()
+def quantize_encoder_weights(encoder: "AudioEncoder") -> dict:
+    """Int8 weights of the encoder blocks' self q/k/v/out and MLP, in
+    ``quantize_step_weights``' form (``{"layers": [...]}``); the conv stem,
+    positions and layer norms stay dense. Inference only."""
+    return {"layers": [
+        {
+            "attn": _quant_attn(b.attn, ("query", "key", "value", "out")),
+            "fc1": _quant_dense(b.mlp_fc1),
+            "fc2": _quant_dense(b.mlp_fc2),
+        }
+        for b in encoder.blocks
+    ]}
+
+
+def _qw(qw, name: str):
+    return None if qw is None else qw[name]
 
 
 def quantize_kv_tensors(
@@ -195,10 +264,12 @@ class MultiHeadAttention(nn.Module):
         kv_len: torch.Tensor,  # int32 scalar
         layer_idx=None,
         beam_group: int = 1,  # beams per utterance sharing this K/V
+        qw: Optional[dict] = None,  # int8 q/out weights
     ) -> torch.Tensor:
         """Cross attention over the quantized K/V: the decode kernel at
         q_len 1, a plain einsum over unpacked K/V for a prefill or a
-        speculative verify chunk.
+        speculative verify chunk. ``qw`` runs the q and out projections
+        W8A8.
 
         ``layer_idx``: the layer of stacked K/V, a device int32 scalar for
         the kernel, a Python int (a view of the slab) for a multi-token
@@ -207,8 +278,9 @@ class MultiHeadAttention(nn.Module):
         ``beam_group=k``: x has batch*k beam-flattened rows while the K/V
         keep batch rows, and each utterance's k beams attend one shared
         K/V read (the kernel's grouped mode)."""
-        q = self._split(self.query(x))  # (b, q, h, hd)
+        q = self._split(_proj(self.query, x, _qw(qw, "query")))  # (b, q, h, hd)
         dt = self.dtype
+        out = lambda o: _proj(self.out, self._merge(o.to(dt)), _qw(qw, "out"))
         if x.shape[1] == 1:
             g = beam_group
             q1 = q[:, 0]  # (b*g, h, hd)
@@ -221,10 +293,8 @@ class MultiHeadAttention(nn.Module):
             )  # (b, h, hd) or (b, h, g, hd); v_s / v_zp applied here
             if g > 1:
                 o = o.transpose(1, 2).float() * v_s[:, None] + v_zp[:, None]
-                o = o.reshape(-1, 1, *o.shape[2:])  # (b*g, 1, h, hd)
-                return self.out(self._merge(o.to(dt)))
-            o = o.float() * v_s + v_zp
-            return self.out(self._merge(o[:, None].to(dt)))
+                return out(o.reshape(-1, 1, *o.shape[2:]))  # (b*g, 1, h, hd)
+            return out((o.float() * v_s + v_zp)[:, None])
         if beam_group != 1:
             raise ValueError("beam grouping is for the one-token decode step")
         if layer_idx is not None:
@@ -242,8 +312,7 @@ class MultiHeadAttention(nn.Module):
         o = torch.einsum(
             "bhqk,bhdk->bqhd", w.to(dt).float(), v_q.to(dt).float()
         )
-        o = o * v_s[:, None].float() + v_zp[:, None].float()
-        return self.out(self._merge(o.to(dt)))
+        return out(o * v_s[:, None].float() + v_zp[:, None].float())
 
     def attend(
         self,
@@ -251,13 +320,14 @@ class MultiHeadAttention(nn.Module):
         k: torch.Tensor,
         v: torch.Tensor,
         mask: Optional[torch.Tensor] = None,
+        qw: Optional[dict] = None,  # int8 q/out weights
     ) -> torch.Tensor:
-        q = self._split(self.query(x))
+        q = self._split(_proj(self.query, x, _qw(qw, "query")))
         if self.use_flash and mask is None and q.shape[1] >= 256:
             o = flash_attention(q, k, v)
         else:
             o = dot_product_attention(q, k, v, mask=mask)
-        return self.out(self._merge(o))
+        return _proj(self.out, self._merge(o), _qw(qw, "out"))
 
     def self_attend_tmaj(self, x: torch.Tensor) -> torch.Tensor:
         """Self-attention through the transposed-layout kernel: the
@@ -319,30 +389,44 @@ class ResidualAttentionBlock(nn.Module):
     def _cast(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.mlp_fc1.weight.dtype)
 
-    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
-        return self.mlp_fc2(gelu(self.mlp_fc1(x), self.gelu_approx))
+    def _mlp(self, x: torch.Tensor, qw: Optional[dict] = None) -> torch.Tensor:
+        hid = gelu(_proj(self.mlp_fc1, x, _qw(qw, "fc1")), self.gelu_approx)
+        return _proj(self.mlp_fc2, hid, _qw(qw, "fc2"))
 
     def forward(
         self,
         x: torch.Tensor,
         xa: Optional[torch.Tensor] = None,
         mask: Optional[torch.Tensor] = None,
+        qw: Optional[dict] = None,
     ) -> torch.Tensor:
-        x = x + self.attn(self._cast(self.attn_ln(x)), mask=mask)
+        """Full-sequence block. ``qw`` (one layer of
+        ``quantize_encoder_weights``) runs the self-attention projections
+        and the MLP W8A8, the attention itself through ``attend``;
+        cross-attention stays dense."""
+        h = self._cast(self.attn_ln(x))
+        if qw is None:
+            x = x + self.attn(h, mask=mask)
+        else:
+            a = qw["attn"]
+            k = self.attn._split(_proj(self.attn.key, h, a["key"]))
+            v = self.attn._split(_proj(self.attn.value, h, a["value"]))
+            x = x + self.attn.attend(h, k, v, mask=mask, qw=a)
         if self.cross_attention:
             x = x + self.cross_attn(self._cast(self.cross_attn_ln(x)), xa=xa)
-        return x + self._mlp(self._cast(self.mlp_ln(x)))
+        return x + self._mlp(self._cast(self.mlp_ln(x)), qw)
 
     def _cross(
         self, x: torch.Tensor, cross: CrossKV,
         layer_idx: Optional[torch.Tensor] = None, beam_group: int = 1,
+        qw: Optional[dict] = None,
     ) -> torch.Tensor:
         h = self._cast(self.cross_attn_ln(x))
         if len(cross) == 6:  # quantized transposed cross K/V
             return x + self.cross_attn.attend_quant(
-                h, *cross, layer_idx=layer_idx, beam_group=beam_group
+                h, *cross, layer_idx=layer_idx, beam_group=beam_group, qw=qw
             )
-        return x + self.cross_attn.attend(h, *cross)
+        return x + self.cross_attn.attend(h, *cross, qw=qw)
 
     def prefill_news(
         self, x: torch.Tensor, mask: torch.Tensor, cross: CrossKV
@@ -358,17 +442,25 @@ class ResidualAttentionBlock(nn.Module):
 
     def _finish(
         self, x: torch.Tensor, o: torch.Tensor, cross: CrossKV,
-        layer_idx, beam_group: int,
+        layer_idx, beam_group: int, qw: Optional[dict] = None,
     ) -> torch.Tensor:
         """The rest of a decode step after the self attention's merged
         (batch, M, n_state) output: out projection, cross attention, MLP.
-        ``layer_idx`` picks the slab of stacked quantized cross K/V."""
-        x = x + self.attn.out(o)
+        ``layer_idx`` picks the slab of stacked quantized cross K/V; ``qw``
+        (one layer of ``quantize_step_weights``) runs every matmul W8A8."""
+        x = x + _proj(self.attn.out, o, None if qw is None else qw["attn"]["out"])
         x = self._cross(
             x, cross, layer_idx=layer_idx if len(cross) == 6 else None,
-            beam_group=beam_group,
+            beam_group=beam_group, qw=_qw(qw, "cross"),
         )
-        return x + self._mlp(self._cast(self.mlp_ln(x)))
+        return x + self._mlp(self._cast(self.mlp_ln(x)), qw)
+
+    def _self_proj(self, h: torch.Tensor, qw: Optional[dict]):
+        """The self-attention's q, k and v of ``h``, each (b, M, n_state)."""
+        a = _qw(qw, "attn")
+        return tuple(
+            _proj(getattr(self.attn, n), h, _qw(a, n)) for n in ("query", "key", "value")
+        )
 
     def step_packed(
         self,
@@ -384,6 +476,7 @@ class ResidualAttentionBlock(nn.Module):
         row_map: Optional[torch.Tensor] = None,
         settled: Optional[torch.Tensor] = None,
         defer_window: int = 8,
+        qw: Optional[dict] = None,
     ) -> torch.Tensor:
         """One decode token through the block over the flat cache (dense
         or int8, through the kernel) or the time-minor one (through the
@@ -391,9 +484,7 @@ class ResidualAttentionBlock(nn.Module):
         read of the dense flat cache (settled prefix through the row
         indirection, the window and the new token merged)."""
         h = self._cast(self.attn_ln(x))
-        kf = self.attn.key(h)[:, 0]
-        vf = self.attn.value(h)[:, 0]
-        qf = self.attn.query(h)[:, 0]
+        qf, kf, vf = (p[:, 0] for p in self._self_proj(h, qw))
         b = qf.shape[0]
         if row_map is not None:
             o = deferred_self_attention(
@@ -422,7 +513,7 @@ class ResidualAttentionBlock(nn.Module):
             news = (kf, vf) if len(cache) == 2 else quantize_flat_kv(kf, vf, self.n_head)
             for buf, new in zip(cache, news):
                 buf[layer].index_copy_(1, pos_index, new[:, None])
-        return self._finish(x, o[:, None], cross, layer_idx, beam_group)
+        return self._finish(x, o[:, None], cross, layer_idx, beam_group, qw)
 
     @staticmethod
     def _new_v(w_new: torch.Tensor, v_new: torch.Tensor) -> torch.Tensor:
@@ -446,6 +537,7 @@ class ResidualAttentionBlock(nn.Module):
         cross: CrossKV,
         layer_idx,  # stacked quantized cross K/V: device scalar or int
         beam_group: int = 1,
+        qw: Optional[dict] = None,
     ):
         """M decode tokens through the block over this layer's slice of
         the 5-D cache, which is only read: returns the new x and the new
@@ -454,8 +546,7 @@ class ResidualAttentionBlock(nn.Module):
         prefix [0, pos) of their row and each other causally."""
         q_len = x.shape[1]
         h = self._cast(self.attn_ln(x))
-        k_new, v_new = self.attn.kv(h)  # (b, M, heads, hd)
-        q = self.attn._split(self.attn.query(h))
+        q, k_new, v_new = (self.attn._split(p) for p in self._self_proj(h, qw))
         scale = q.shape[-1] ** -0.5
         quant = len(cache) == 4
         if quant:
@@ -489,7 +580,7 @@ class ResidualAttentionBlock(nn.Module):
             o = torch.einsum(
                 "bhqk,bkhd->bqhd", w[..., :max_len].to(cv.dtype).float(), cv.float()
             ) + self._new_v(w[..., max_len:], v_new)
-        x = self._finish(x, self.attn._merge(o), cross, layer_idx, beam_group)
+        x = self._finish(x, self.attn._merge(o), cross, layer_idx, beam_group, qw)
         if quant:
             news = self._quantize_cache_entry(k_new) + self._quantize_cache_entry(v_new)
         else:
@@ -557,10 +648,15 @@ class AudioEncoder(nn.Module):
             x = x + self.positional_embedding[: x.shape[1]].to(x.dtype)
         return x
 
-    def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
+    def run_blocks(self, x: torch.Tensor, qw: Optional[dict] = None) -> torch.Tensor:
+        """The blocks and ``ln_post``; ``qw`` (``quantize_encoder_weights``)
+        runs them W8A8 (inference only)."""
         x = x.to(self.dtype)
-        for block in self.blocks:
-            x = _run_block(block, self.remat, x)
+        for i, block in enumerate(self.blocks):
+            if qw is None:
+                x = _run_block(block, self.remat, x)
+            else:
+                x = block(x, qw=qw["layers"][i])
         return self.ln_post(x).to(self.dtype)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
@@ -678,6 +774,15 @@ class TextDecoder(nn.Module):
             flat = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
             return flat.reshape(*x.shape[:-1], w.shape[0])
         return F.linear(x, w).float()
+
+    @staticmethod
+    def logits_quant(
+        x: torch.Tensor, emb_q: torch.Tensor, emb_s: torch.Tensor
+    ) -> torch.Tensor:
+        """W8A8 tied-embedding logits of the decode step: the per-row int8
+        embedding (``quantize_step_weights``) times the dynamically
+        quantized hidden states, f32, no bias."""
+        return qmatmul(x, emb_q, emb_s)
 
     # ---- full-sequence forward (training) ----
 
@@ -810,6 +915,7 @@ class TextDecoder(nn.Module):
         row_map: Optional[torch.Tensor] = None,
         settled: Optional[torch.Tensor] = None,
         defer_window: int = 8,
+        qw: Optional[dict] = None,
     ):
         """One decode step, the cache updated in place. ``pos`` is a scalar
         (every row at one position) or a (batch,) vector of per-row
@@ -822,7 +928,8 @@ class TextDecoder(nn.Module):
         beam-flattened rows while the quantized ``cross`` keeps batch rows
         (``attend_quant``). ``row_map``, ``settled`` and ``defer_window``
         select the deferred-beam-reorder read of the dense flat cache
-        (``deferred_self_attention``)."""
+        (``deferred_self_attention``). ``qw`` (``quantize_step_weights``)
+        runs every dense matmul of the step W8A8, the logits included."""
         self.check_self_cache()
         q_len = token_emb.shape[1]
         ragged = pos.dim() > 0
@@ -860,17 +967,18 @@ class TextDecoder(nn.Module):
             else:
                 cross_i = self._layer_cross(cross, i)
             li = self.layer_ids[i]
+            qw_i = None if qw is None else qw["layers"][i]
             if layout == "5d":
                 x, new = block.step_5d(
                     x, tuple(c[i] for c in cache), pos, cross_i,
-                    li if q_len == 1 else i, beam_group=beam_group,
+                    li if q_len == 1 else i, beam_group=beam_group, qw=qw_i,
                 )
                 news.append(new)
             else:
                 x = block.step_packed(
                     x, cache, layout, i, li, pos, t, cross_i,
                     beam_group=beam_group, row_map=row_map, settled=settled,
-                    defer_window=defer_window,
+                    defer_window=defer_window, qw=qw_i,
                 )
         if news:
             # one write a leaf of every layer's (b, M, ...) entries after
@@ -883,5 +991,5 @@ class TextDecoder(nn.Module):
                 else:
                     buf.index_copy_(2, t, new)
         x = self.ln(x).to(self.dtype)
-        logits = self.logits(x)
+        logits = self.logits(x) if qw is None else self.logits_quant(x, *qw["emb"])
         return (logits[:, 0] if q_len == 1 else logits), cache

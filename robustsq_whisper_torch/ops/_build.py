@@ -30,6 +30,7 @@ KERNELS = (
     "settled_self_attention",
     "flash_attention",
     "flash_attention_bwd",
+    "w8a8_matmul",
 )
 # C entry points of a library, where not one named like the library
 ENTRIES = {
@@ -56,6 +57,7 @@ SIGNATURES = {
     "flash_attention": [_P] * 6 + [_I] * 10 + [_P],
     "flash_attention_bwd_dq": [_P] * 8 + [_I] * 10 + [_P],
     "flash_attention_bwd_dkv": [_P] * 9 + [_I] * 10 + [_P],
+    "w8a8_matmul": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -117,6 +117,8 @@ CASES = {
     # enrollments the two CLIs draw
     "long-audio-30s": ("--long_audio", "true"),
     "draft": ("--speculative_gamma", "2", "--draft_path", "{draft}"),
+    # W8A8 step weights: the token steps through qmatmul, the prefill dense
+    "int8-weights": ("--int8_weights", "true"),
 }
 
 
@@ -159,6 +161,32 @@ def test_decode_equals_jax_cli(trained, request, monkeypatch, case):
     assert {"wer", "cer"} <= ps.keys()
     if "--speculative_gamma" in CASES[case]:
         assert float(ps["spec_chunks"]) > 0
+
+
+def test_serve_takes_int8_weights(trained, monkeypatch):
+    """``cli.serve --int8_weights true`` builds an engine whose token steps
+    run W8A8 (through ``qmatmul``'s plain version on the CPU) and serves
+    a text."""
+    import numpy as np
+
+    from robustsq_whisper_torch.cli import serve as pserve
+    from robustsq_whisper_torch.ops import quant
+
+    args = pserve.parse_args([
+        "--config", trained["config"], "--inference_config", BEAM1, "--expdir",
+        trained["pexp"], "--tokenizer_assets", RANKS, "--batch_size", "2",
+        "--device", "cpu", "--int8_weights", "true",
+    ])
+    engine, _ = pserve.build_engine(args)
+    assert engine.dcfg.quantize_weights
+    calls = []
+    plain = quant.qmatmul_plain
+    monkeypatch.setattr(quant, "qmatmul_plain", lambda *a, **kw: calls.append(1) or plain(*a, **kw))
+    rng = np.random.default_rng(0)
+    pair = tuple((rng.standard_normal(int(s * 16000)) * 0.1).astype(np.float32)
+                 for s in (1.0, 0.5))
+    texts = engine.transcribe([pair])
+    assert len(texts) == 1 and isinstance(texts[0], str) and calls
 
 
 def test_distill_equals_jax_cli(drafts):
@@ -221,7 +249,6 @@ def test_decode_from_random_init_and_ave(trained, tmp_path):
     "flag,value,item",
     [
         ("--model_parallel", "2", "A15"),
-        ("--int8_weights", "true", "A10"),
     ],
 )
 def test_unsupported_flags_stop(flag, value, item, capsys):
@@ -239,8 +266,7 @@ def test_unsupported_flags_stop(flag, value, item, capsys):
 def test_serve_unsupported_flags_stop(capsys):
     from robustsq_whisper_torch.cli import serve as pserve
 
-    for flag, value in (("--compile_cache", "/tmp/x"), ("--model_parallel", "2"),
-                        ("--int8_weights", "true")):
+    for flag, value in (("--compile_cache", "/tmp/x"), ("--model_parallel", "2")):
         with pytest.raises(SystemExit):
             pserve.parse_args(["--config", CONFIG, flag, value])
         assert flag in capsys.readouterr().err

@@ -14,6 +14,7 @@ import torch
 from robustsq_whisper_torch.ops import beam_gather as tbg
 from robustsq_whisper_torch.ops import decode_attention as tdec
 from robustsq_whisper_torch.ops import flash_attention as tflash
+from robustsq_whisper_torch.ops import quant as tquant
 from robustsq_whisper_torch.ops import self_attention as tself
 
 
@@ -705,3 +706,75 @@ def test_flash_bwd_is_deterministic(cuda, mask):
     second = tflash._flash_backward(q, k, v, m, out, lse, do)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# (M, K, N): the decode step's rows (greedy 4, beam 20, a verify chunk 44),
+# the M, N and K tails (1, 17, 63, 65, 130 rows; 7 and 51865 columns; K
+# 16, 80 and 1040, not multiples of the 64-wide chunk) and the large-M tiling
+W8A8_SHAPES = [
+    (4, 1024, 1024), (20, 1024, 4096), (44, 4096, 1024), (4, 1024, 51865),
+    (1, 16, 7), (17, 80, 33), (63, 1040, 129), (65, 1024, 1024),
+    (130, 4096, 200), (600, 1024, 1024),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", W8A8_SHAPES, ids=[f"{m}x{k}x{n}" for m, k, n in W8A8_SHAPES])
+@pytest.mark.parametrize("x_dtype,out_dtype,with_bias", [
+    (torch.bfloat16, torch.bfloat16, True), (torch.bfloat16, torch.float32, False),
+    (torch.float32, torch.float32, True), (torch.float32, torch.bfloat16, False),
+])
+def test_w8a8_kernel_equals_plain(cuda, shape, x_dtype, out_dtype, with_bias):
+    """Bit for bit: the kernel's codes, scales and epilogue are the plain
+    version's ops, and its int32 sums are exact."""
+    m, k, n = shape
+    g = torch.Generator(device=cuda).manual_seed(m * 7 + n)
+    x = (torch.randn(m, k, generator=g, device=cuda) * 3).to(x_dtype)
+    x[0, : k // 2] = 0  # ties and zeros in a row's codes
+    w_q, w_s = tquant.quantize_weight(torch.randn(n, k, generator=g, device=cuda) * 0.05)
+    bias = torch.randn(n, generator=g, device=cuda) if with_bias else None
+    launches = tquant.qmatmul.launches
+    got = tquant.qmatmul(x, w_q, w_s, bias, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert tquant.qmatmul.launches == launches + tquant.LAUNCHES_PER_CALL
+    ref = tquant.qmatmul_plain(x, w_q, w_s, bias, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_w8a8_zero_rows_and_leading_dims(cuda):
+    """An all-zero row takes the 1e-12 scale floor (output = bias); leading
+    axes are flattened and restored."""
+    w_q, w_s = tquant.quantize_weight(torch.randn(48, 64, device=cuda))
+    bias = torch.randn(48, device=cuda)
+    x = torch.randn(2, 3, 64, device=cuda)
+    x[1, 2] = 0
+    got = tquant.qmatmul(x, w_q, w_s, bias)
+    assert got.shape == (2, 3, 48)
+    assert torch.equal(got, tquant.qmatmul_plain(x, w_q, w_s, bias))
+    assert torch.equal(got[1, 2], bias)
+
+
+@pytest.mark.cuda
+def test_w8a8_refuses_what_it_cannot_take(cuda):
+    w_q, w_s = tquant.quantize_weight(torch.randn(8, 40, device=cuda))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tquant.qmatmul(torch.randn(4, 40, device=cuda), w_q, w_s)
+    w_q, w_s = tquant.quantize_weight(torch.randn(8, 64, device=cuda))
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        tquant.qmatmul(torch.randn(4, 64, device=cuda).half(), w_q, w_s)
+
+
+@pytest.mark.cuda
+def test_quantize_on_the_card_is_the_ieee_division(cuda):
+    """The scales and codes of quantize_weight / quantize_activation on the
+    card equal the CPU's (a true f32 division on both: PyTorch's CUDA
+    division by a Python scalar would multiply by the reciprocal)."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(512, 333, generator=g) * torch.rand(512, 1, generator=g) * 10
+    for fn in (tquant.quantize_activation, tquant.quantize_weight):
+        cpu = fn(x)
+        card = fn(x.to(cuda))
+        for a, b in zip(cpu, card):
+            assert torch.equal(a, b.cpu())

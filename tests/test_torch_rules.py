@@ -77,21 +77,18 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize(
     "change",
-    [dict(with_timestamps=True), dict(ctc_decode_weight=0.3), dict(quantize_weights=True)],
+    [dict(with_timestamps=True), dict(ctc_decode_weight=0.3)],
 )
 def test_paths_outside_the_slice_raise(change):
     """A path the engine cannot serve raises when the engine is built; none
-    runs a silent substitute. W8A8 step weights are a later slice
-    (NotImplementedError naming its ROADMAP item); timestamp decoding needs
-    the timestamp tokens in the vocabulary (here 50 ids); joint CTC decode
-    needs the CTC head, which the engine does not take (nor does the JAX
-    package's)."""
+    runs a silent substitute. Timestamp decoding needs the timestamp tokens
+    in the vocabulary (here 50 ids); joint CTC decode needs the CTC head,
+    which the engine does not take (nor does the JAX package's)."""
     dims = WhisperDims(n_text_state=128, n_text_head=2, n_text_layer=1, n_vocab=50)
     enc = QFormerTSEncoder(dims, TSEncoderConfig(num_hidden_layers=1))
     error, match = {
         "with_timestamps": (ValueError, "timestamp tokens"),
         "ctc_decode_weight": (ValueError, "CTC head"),
-        "quantize_weights": (NotImplementedError, "ROADMAP A10"),
     }[next(iter(change))]
     with pytest.raises(error, match=match):
         TranscriptionEngine(
@@ -122,8 +119,10 @@ def _small_engine(dec_kw, change):
     [
         (dict(self_kv_bits=8), dict(beam_size=4)),  # beam over the int8 flat cache
         (dict(flat_self_cache=False), dict(speculative_gamma=4, draft_layers=1)),
+        (dict(), dict(quantize_weights=True)),  # W8A8 step weights, greedy
+        (dict(self_kv_bits=8), dict(beam_size=4, quantize_weights=True)),
     ],
-    ids=["beam-int8-flat", "speculative"],
+    ids=["beam-int8-flat", "speculative", "w8a8-greedy", "w8a8-beam-int8-flat"],
 )
 def test_paths_of_this_slice_build_and_run(dec_kw, change):
     """Paths this slice ported: the engine builds on the CPU and
