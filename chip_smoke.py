@@ -115,24 +115,34 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    encoder's attention is plain, as the JAX package's), and the RTFs are
    printed;
 4f. W8A8 serving (``quantize_weights``, ``--int8_weights``;
-   ``run_w8a8_paths``): ``w8a8_matmul`` against ``qmatmul_plain`` at every
+   ``run_w8a8_paths``): the ``ptxas`` lines of the ``w8a8_matmul``
+   instantiations; ``w8a8_matmul`` against ``qmatmul_plain`` at every
    (M, K, N) of the slice's paths (the decode step at 4, 20 and 44 rows,
-   the encoder at 4 x 1516 rows), bit for bit, each shape's time (graph
-   replay), bound, ``torch._int_mm``'s time for the product alone (M
-   padded to 32, N to a multiple of 8) and the bf16 ``F.linear`` it
-   replaces; then the engine with W8A8 step weights at medium, greedy over
-   the dense and int8 flat caches, beam 5 eager and deferred and
+   the encoder at 4 x 1516 rows) and at the kernels' edges
+   (``W8A8_EDGES``), bit for bit, for f32 and bf16 activations and
+   outputs, with and without bias, each call's launches (as the C entry
+   reports them) equal to ``launches_per_call`` (one at M <= 64, two
+   above); each main shape's
+   time (graph replay), bound, ``torch._int_mm``'s time for the product
+   alone (M padded to 32, N to a multiple of 8) and the bf16 ``F.linear``
+   it replaces; then the engine with W8A8 step weights at medium, greedy
+   over the dense and int8 flat caches, beam 5 eager and deferred and
    speculative gamma 10 (1-layer self-draft): each transcribe counted, its
    ``w8a8_matmul`` launches equal to the steps (from the cross kernel's
    launches) x 193 calls (the speculative path's rounds x (10 draft steps
-   x 9 + 193)) x 2 launches, its run timed beside the dense engine's and
-   its tokens' agreement with the dense path printed; one encode with
-   ``quantize_encoder_weights`` (row 4 launched 24 times, row 1 never,
-   ``w8a8_matmul`` 144 x 2) timed beside the dense encode; inside phase 4b
+   x 9 + 193)) x the calls' ``launches_per_call``, its run timed beside
+   the dense engine's and its tokens' agreement with the dense path
+   printed; one encode with ``quantize_encoder_weights`` (row 4 launched
+   24 times, row 1 never, ``w8a8_matmul`` 144 x 2) timed beside the dense
+   encode; inside phase 4b
    (``run_w8a8_entry_points``), ``cli.decode --int8_weights true`` greedy
    and at beam 5 over 4b's data dir and ``cli.serve --int8_weights true``
    answering 8 requests; last of all, ``utils.profiling.op_stats`` over
-   one profiled W8A8 greedy run. Phase 3 holds W8A8 greedy and beam 3 on
+   one profiled W8A8 greedy run and one W8A8 encode, the W8A8 kernels
+   counted by name in each trace (``profile_w8a8``: the greedy run's
+   fused kernels equal to its steps x 193 and to ``qmatmul``'s count, no
+   quantizer or ``wgmma`` kernel; the encode's 144 quantizers and 144
+   ``wgmma`` products, no fused kernel). Phase 3 holds W8A8 greedy and beam 3 on
    the card to the CPU's tokens;
 5. training: the three flash-attention training kernels (forward, dQ,
    dK/dV) against their plain versions at the medium training shape
@@ -2723,19 +2733,63 @@ def run_embedding_enrollment(torch, dev):
 # and cross q/out), fc1 and fc2 a layer, and the tied logits
 W8A8_STEP = ((1024, 1024, 24 * 6), (1024, 4096, 24), (4096, 1024, 24), (1024, 51865, 1))
 W8A8_CALLS = sum(c for _, _, c in W8A8_STEP)  # 193
+# (K, calls) of one W8A8 encoder block: q, k, v and out, fc1, fc2
+W8A8_ENC_LAYER = ((1024, 4), (1024, 1), (4096, 1))
 W8A8_ROWS = {  # where: the rows M of its products
     "decoder step, greedy batch 4": 4,
     "decoder step, beam 5": 20,
     "speculative verify, 4 x (gamma 10 + 1)": 44,
     "encoder with qw, 4 x 1516": 4 * 1516,
 }
+# (M, K, N) at the kernels' edges, held bit for bit only: the last rows of
+# the fused path and the first of the wgmma one (64, 65), wgmma row tiles
+# full and one past (128, 129) and ragged (700), N off the 64- and
+# 128-column tiles, K of one segment or less (16, 48), one 16-byte chunk
+# past a segment (1040), the fused path's largest K (8192) and the first
+# past it at few rows (8208: two launches)
+W8A8_EDGES = (
+    (1, 16, 7), (64, 1024, 1000), (65, 1024, 1000), (128, 1024, 256), (129, 4096, 200),
+    (700, 1024, 1000), (44, 48, 33), (17, 1040, 129), (6064, 1040, 136), (64, 8192, 100),
+    (4, 8208, 64),
+)
+# (activations, output, bias) of the bit-equality checks
+W8A8_DTYPES = (("bf16", "bf16", True), ("bf16", "f32", False), ("f32", "f32", True),
+               ("f32", "bf16", False))
+
+
+def w8a8_equal(torch, dev, quant, m: int, k: int, n: int, seed: int):
+    """``qmatmul`` against ``qmatmul_plain`` at (M, K, N) for every
+    ``W8A8_DTYPES`` case (a zero half-row among the activations): (all
+    equal, largest |difference|, launches a call)."""
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=dev) * 3
+    x[0, : k // 2] = 0
+    w_q, w_s = quant.quantize_weight(torch.randn(n, k, generator=g, device=dev) * 0.05)
+    bias = torch.randn(n, generator=g, device=dev)
+    equal, err, launches = True, 0.0, set()
+    for xd, od, with_bias in W8A8_DTYPES:
+        xs, b = x.to(dt[xd]), bias if with_bias else None
+        before = quant.qmatmul.launches
+        got = quant.qmatmul(xs, w_q, w_s, b, dt[od])
+        torch.cuda.synchronize()
+        launches.add(quant.qmatmul.launches - before)
+        ref = quant.qmatmul_plain(xs, w_q, w_s, b, dt[od])
+        equal = equal and torch.equal(got, ref)
+        err = max(err, (got.float() - ref.float()).abs().max().item())
+    if len(launches) != 1:
+        raise AssertionError(f"w8a8_matmul launched {launches} kernels a call at {(m, k, n)}")
+    return equal, err, launches.pop()
 
 
 def check_w8a8_kernel(torch, dev):
     """Phase 4f, the kernel: ``w8a8_matmul`` (through ``qmatmul``) against
     ``qmatmul_plain`` on the same bf16 activations, int8 weights, f32
     scales and biases at every (M, K, N) of ``W8A8_ROWS`` x ``W8A8_STEP``
-    (the encoder has no logits): bit for bit. Each shape's kernel time is
+    (the encoder has no logits): bit for bit; at each of those and of
+    ``W8A8_EDGES`` also every ``W8A8_DTYPES`` case, each call's launches
+    (the kernels the C entry reports it launched) equal to
+    ``launches_per_call`` (reported per M at K <= 8192). Each shape's kernel time is
     graph replay (20 calls a graph at the decode rows); the bound is the
     larger of the bytes (x, the int8 weights, scales, bias and y once) over
     the memory rate and 2 M N K over the int8 tensor-core rate; the library
@@ -2751,7 +2805,20 @@ def check_w8a8_kernel(torch, dev):
     g = torch.Generator(device=dev).manual_seed(13)
     shapes, step = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                             linear_ms=0.0, t_bytes=0.0, t_ops=0.0)
-    max_err, all_equal = 0.0, True
+    max_err, all_equal, per_m = 0.0, True, {}
+    checks = [(m, k, n) for m in W8A8_ROWS.values() for k, n, _ in W8A8_STEP
+              if n != 51865 or m <= 64] + list(W8A8_EDGES)
+    for i, (m, k, n) in enumerate(checks):
+        equal, err, launches = w8a8_equal(torch, dev, quant, m, k, n, seed=100 + i)
+        want = quant.launches_per_call(m, k)
+        log(f"w8a8_matmul M {m} K {k} N {n}: equal to plain {equal} for {len(W8A8_DTYPES)} "
+            f"dtype/bias cases (max_abs_err {err}); {launches} launches a call (want {want})")
+        if launches != want:
+            raise AssertionError(f"w8a8_matmul at {(m, k, n)}: {launches} launches, want {want}")
+        if k <= quant.DECODE_MAX_K:
+            per_m.setdefault(m, launches)
+        max_err, all_equal = max(max_err, err), all_equal and equal
+    torch.cuda.empty_cache()
     for where, m in W8A8_ROWS.items():
         for k, n, calls in W8A8_STEP:
             logits = n == 51865
@@ -2801,9 +2868,10 @@ def check_w8a8_kernel(torch, dev):
         name="w8a8_matmul", route="cuda", source="robustsq_whisper_torch/csrc/w8a8_matmul.cu",
         replaces=f"{TPU_SRC}/quant.py:64", max_abs_err=max_err, tol=0.0,
         shape="one greedy decode step at batch 4: 193 calls (M 4), times summed",
-        calls_per_step=W8A8_CALLS, launches_per_call=quant.LAUNCHES_PER_CALL,
+        calls_per_step=W8A8_CALLS, launches_per_call={str(m): c for m, c in sorted(per_m.items())},
         shapes=shapes, **step,
     )
+    log(f"w8a8_matmul launches a call by M (K <= 8192): {row['launches_per_call']}")
     log(f"kernel w8a8_matmul, one greedy step's {W8A8_CALLS} calls at batch 4 on {gpu_info()}: "
         f"ms {row['ms']:.4f} bound_ms {row['bound_ms']:.4f} ({row['bound_by']}, share "
         f"{row['bound_ms'] / row['ms']:.3f}) plain_ms {row['plain_ms']:.4f} int_mm_ms "
@@ -2823,32 +2891,47 @@ W8A8_PATHS = {  # path: (decoder flags, config)
 }
 
 
-def w8a8_expected(counts, cfg) -> int:
+def w8a8_step_launches(m: int, layers: int = 24) -> int:
+    """``w8a8_matmul`` launches of one decode step of ``layers`` layers at
+    ``m`` rows: ``W8A8_STEP``'s calls, each ``launches_per_call``."""
+    from robustsq_whisper_torch.ops.quant import launches_per_call
+
+    return sum((c // 24 * layers if n != 51865 else c) * launches_per_call(m, k)
+               for k, n, c in W8A8_STEP)
+
+
+def w8a8_expected(counts, cfg, batch: int) -> int:
     """``w8a8_matmul`` launches a transcribe must show, from the cross
     kernel's launches: greedy and beam run one cross launch a layer a step,
-    so steps = launches / 24 and each step makes 193 calls; speculative
-    decode runs the cross kernel in its 1-layer draft's steps only (the
-    verify chunk reads the cross K/V in plain PyTorch), gamma a round, and
-    a round makes gamma draft steps of 9 calls (8 matmuls and the logits)
-    and one verify of 193."""
-    from robustsq_whisper_torch.ops.quant import LAUNCHES_PER_CALL
-
+    so steps = launches / 24 and each step makes 193 calls at batch (x
+    beam) rows; speculative decode runs the cross kernel in its 1-layer
+    draft's steps only (the verify chunk reads the cross K/V in plain
+    PyTorch), gamma a round, and a round makes gamma draft steps of 9 calls
+    (8 matmuls and the logits) at batch rows and one verify of 193 at batch
+    x (gamma + 1) rows."""
     gamma = cfg.get("speculative_gamma", 0)
     if gamma:
         rounds = counts["decode_cross_attention"] // gamma
-        return rounds * (gamma * 9 + W8A8_CALLS) * LAUNCHES_PER_CALL
-    key = "decode_cross_attention_grouped" if cfg.get("beam_size", 1) > 1 else "decode_cross_attention"
-    return counts[key] // 24 * W8A8_CALLS * LAUNCHES_PER_CALL
+        return rounds * (gamma * w8a8_step_launches(batch, layers=1)
+                         + w8a8_step_launches(batch * (gamma + 1)))
+    beam = cfg.get("beam_size", 1)
+    key = "decode_cross_attention_grouped" if beam > 1 else "decode_cross_attention"
+    return counts[key] // 24 * w8a8_step_launches(batch * beam)
 
 
-def run_w8a8_paths(torch, dev, models, batch: int, max_new: int):
-    """Phase 4f: the kernel check (``check_w8a8_kernel``), the engine's
-    W8A8 paths at medium and one encode with W8A8 blocks. Returns (kernel
-    row, {path: launches}, (greedy W8A8 engine, memory, prompt))."""
+def run_w8a8_paths(torch, dev, models, batch: int, max_new: int, reports):
+    """Phase 4f: the ``ptxas`` lines of the ``w8a8_matmul`` instantiations
+    (from the build's ``reports``), the kernel check
+    (``check_w8a8_kernel``), the engine's W8A8 paths at medium and one
+    encode with W8A8 blocks. Returns (kernel row, {path: launches}, (greedy
+    W8A8 engine, memory, prompt), a function that runs the W8A8 encode)."""
     from robustsq_whisper_torch.decode.pipeline import chunked_encode
     from robustsq_whisper_torch.models.ts_encoder import quantize_encoder_weights
+    from robustsq_whisper_torch.ops.quant import launches_per_call
 
     t_phase = time.perf_counter()
+    for name, fn, regs, spills in ptxas_report({"w8a8_matmul": reports.get("w8a8_matmul", "")}):
+        log(f"ptxas w8a8_matmul instantiation {fn}: {regs}; {spills or 'no spill line'}")
     row = check_w8a8_kernel(torch, dev)
     dims, enc, dec = models
     items = synthetic_pairs(batch, seed=0)
@@ -2859,7 +2942,7 @@ def run_w8a8_paths(torch, dev, models, batch: int, max_new: int):
         engine = engine_for(torch, dev, enc, d, batch, max_new, quantize_weights=True, **cfg)
         wall, counts = counted_transcribe(torch, engine, items, path, ("w8a8_matmul",))
         launches[path] = counts
-        want = w8a8_expected(counts, cfg)
+        want = w8a8_expected(counts, cfg, batch)
         if memory is None:
             memory, prompt = chunked_encode(engine.encode, engine.stage(items), 0)
             greedy = (engine, memory, prompt)
@@ -2907,15 +2990,21 @@ def run_w8a8_paths(torch, dev, models, batch: int, max_new: int):
         f"dense output {dev_err:.4f} of its std; launches flash_attention "
         f"{counts['flash_attention']} flash_attention_tmaj {counts['flash_attention_tmaj']} "
         f"w8a8_matmul {counts['w8a8_matmul']}")
+    t_enc = batch * 1516  # rows of the encoder's matmuls (1500 frames + 16 queries)
     want = {"flash_attention": 24, "flash_attention_tmaj": 0,
-            "w8a8_matmul": 24 * 6 * row["launches_per_call"]}
+            "w8a8_matmul": 24 * sum(c * launches_per_call(t_enc, k) for k, c in W8A8_ENC_LAYER)}
     if any(counts[k] != v for k, v in want.items()) or not torch.isfinite(out_q.float()).all():
         raise AssertionError(f"W8A8 encode: launches {counts}, expected {want}")
-    del qw_enc, out_q, out_d
+    del out_q, out_d
     torch.cuda.empty_cache()
     report["phase_s"] = time.perf_counter() - t_phase
     log(f"W8A8 paths on {gpu_info()}: {json.dumps(report)}")
-    return row, launches, greedy
+
+    def encode_q():
+        with torch.inference_mode():
+            return enc(*staged, qw=qw_enc)
+
+    return row, launches, greedy, encode_q
 
 
 def run_w8a8_entry_points(torch, dev, root, data_dir, wavs, enrolls):
@@ -2989,24 +3078,47 @@ def run_w8a8_entry_points(torch, dev, root, data_dir, wavs, enrolls):
     return launches
 
 
-def profile_w8a8(torch, greedy) -> None:
+# the W8A8 kernels by family, as the profiler names them: the fused decode
+# kernels (local and cluster), the large-M path's row quantizer and product
+W8A8_KERNELS = {"fused": "w8a8_decode_", "quantizer": "quantize_rows_kernel",
+                "wgmma": "w8a8_gemm_sm90_kernel"}
+
+
+def profile_w8a8(torch, greedy, encode_q, batch: int) -> None:
     """Phase 4f, last: ``utils.profiling.trace`` around one W8A8 greedy run
-    and ``op_stats`` over its trace: the top device kernels."""
+    and one W8A8 encode, ``op_stats`` over each trace (the top device
+    kernels), and the W8A8 kernels the card ran, counted by name in the
+    trace: the greedy run's fused kernels must equal both the
+    ``w8a8_matmul`` launches ``qmatmul`` counted in the same run and the
+    steps x 193 calls (steps from the cross kernel's launches), with no
+    quantizer or ``wgmma`` kernel; the encode's 144 calls must run 144
+    quantizers and 144 ``wgmma`` products and no fused kernel."""
     import shutil
 
     from robustsq_whisper_torch.ops._build import BUILD
     from robustsq_whisper_torch.utils.profiling import op_stats, top_ops, trace
 
     engine, memory, prompt = greedy
-    trace_dir = str(BUILD / "trace_w8a8_greedy")
-    shutil.rmtree(trace_dir, ignore_errors=True)
-    with trace(trace_dir):
-        engine.run(memory, prompt)
-    stats = op_stats(trace_dir)
-    log(f"op_stats of one W8A8 greedy run on {gpu_info()} (device ms, calls):\n"
-        + top_ops(stats, 8))
-    if not any("w8a8_gemm_kernel" in name for name in stats):
-        raise AssertionError("the profiled W8A8 run shows no w8a8_gemm_kernel")
+    calls = 24 * sum(c for _, c in W8A8_ENC_LAYER)
+    for what, fn in (("greedy run", lambda: engine.run(memory, prompt)), ("encode", encode_q)):
+        trace_dir = str(BUILD / f"trace_w8a8_{what.replace(' ', '_')}")
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        with trace(trace_dir):
+            _, _, counts = counted(torch, fn)
+        stats = op_stats(trace_dir)
+        seen = {fam: round(sum(r["count"] for name, r in stats.items() if pat in name))
+                for fam, pat in W8A8_KERNELS.items()}
+        if what == "encode":
+            want = {"fused": 0, "quantizer": calls, "wgmma": calls}
+        else:
+            want = {"fused": w8a8_expected(counts, {}, batch), "quantizer": 0, "wgmma": 0}
+        log(f"op_stats of one W8A8 {what} on {gpu_info()} (device ms, calls):\n"
+            + top_ops(stats, 8))
+        log(f"W8A8 {what}: kernels in the trace {seen}, expected {want}; qmatmul counted "
+            f"{counts['w8a8_matmul']} launches")
+        if seen != want or counts["w8a8_matmul"] != sum(seen.values()):
+            raise AssertionError(f"W8A8 {what}: the trace shows {seen}, expected {want}, and "
+                                 f"qmatmul counted {counts['w8a8_matmul']} launches")
 
 
 # the self-cache read kernels' names: the shared read's, and those of the
@@ -3073,7 +3185,8 @@ def main() -> int:
     beam_launches, beam_run = run_beam_paths(torch, dev, models, batch, max_new)
     layout_launches = run_layout_paths(torch, dev, models, batch, max_new)
     asr_launches = run_asr_paths(torch, dev, models, batch, max_new)
-    w8a8_row, w8a8_launches, w8a8_greedy = run_w8a8_paths(torch, dev, models, batch, max_new)
+    w8a8_row, w8a8_launches, w8a8_greedy, w8a8_encode = run_w8a8_paths(
+        torch, dev, models, batch, max_new, reports)
     rows.append(w8a8_row)
     entry_launches = run_entry_points(torch, dev)
     train_entry_launches, cli_rate = run_train_entry(torch, dev)
@@ -3083,7 +3196,7 @@ def main() -> int:
         f"training wall) {cli_rate:.2f}, make_train_step in memory (lora, fastest step) "
         f"{train_rates['train lora']:.2f}")
     profile_runs(torch, greedy, beam_run, train_run)
-    profile_w8a8(torch, w8a8_greedy)
+    profile_w8a8(torch, w8a8_greedy, w8a8_encode, batch)
     by_path = {"greedy": greedy_launches, **beam_launches, **layout_launches, **asr_launches,
                **w8a8_launches, **entry_launches, **train_entry_launches, **embed_launches,
                **train_launches}

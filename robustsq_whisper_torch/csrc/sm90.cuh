@@ -1,10 +1,11 @@
 // Hopper building blocks shared by the flash-attention kernels
 // (flash_fwd_sm90.cuh, flash_attention_bwd.cu; decode_cross_attention.cu
-// takes its cp.async wrappers, self_cache_read.cuh its exp2): PTX wrappers for mbarriers, named
-// barriers, cp.async and wgmma, the 128-byte swizzle and its wgmma
-// descriptors, and the row-major tiles (128-byte rows of 64 bf16 channels,
-// a row every heads * 64 elements) that a loader warpgroup moves into
-// shared memory and a consumer warpgroup writes back.
+// takes its cp.async wrappers, self_cache_read.cuh its exp2, w8a8_matmul.cu
+// the s8 wgmma, TMA and mbarrier wrappers): PTX wrappers for mbarriers,
+// named barriers, cp.async, TMA and wgmma (bf16 and s8), the 128-byte
+// swizzle and its wgmma descriptors, and the row-major tiles (128-byte rows
+// of 64 bf16 channels, a row every heads * 64 elements) that a loader
+// warpgroup moves into shared memory and a consumer warpgroup writes back.
 
 #pragma once
 
@@ -24,6 +25,13 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// one arrival that also expects `bytes` more of asynchronous (TMA) copies
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
 }
 
 // returns once the phase of parity `parity` has completed
@@ -65,6 +73,19 @@ __device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int src_
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar)
                : "memory");
+}
+
+// TMA: the box at (c0, c1) (innermost coordinate first) of the tensor map
+// at `tmap` (a __grid_constant__ kernel parameter) into shared memory at
+// dst, completing its bytes on `bar`; parts of the box outside the tensor
+// are written as zeros
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -195,6 +216,33 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, 
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+// d (64 x 128, s32) (+)= A (smem, 64 x 32 s8) B (smem, 32 x 128 s8). Integer
+// wgmma takes both operands K-major only (no transpose bits); the sums are
+// exact (s32, wrapping)
+__device__ __forceinline__ void wgmma_s8_ss_n128(uint32_t (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),
+        "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]),
+        "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),
+        "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // A 64 x N f32 accumulator (N = 8 * NR / 4), rounded to bf16, as the

@@ -57,7 +57,7 @@ SIGNATURES = {
     "flash_attention": [_P] * 6 + [_I] * 10 + [_P],
     "flash_attention_bwd_dq": [_P] * 8 + [_I] * 10 + [_P],
     "flash_attention_bwd_dkv": [_P] * 9 + [_I] * 10 + [_P],
-    "w8a8_matmul": [_P] * 7 + [_I] * 5 + [_P],
+    "w8a8_matmul": [_P] * 7 + [_I] * 5 + [_P, _P],
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -14,17 +14,21 @@ Weights keep the port's ``(out, in)`` layout (``nn.Linear``'s), so the
 scale is taken over the last axis; the tied embedding ``(n_vocab,
 n_state)`` is the same layout, quantized per row for the logits.
 
-``qmatmul`` launches the hand-written CUDA kernel
+``qmatmul`` launches the hand-written CUDA kernels
 (``csrc/w8a8_matmul.cu``) for CUDA tensors and runs ``qmatmul_plain`` for
-CPU tensors. The plain version sums the int8 products in f64, exact for
-any K this model has (every partial sum is an integer below 2^53), so the
-two agree bit for bit.
+CPU tensors: at most ``DECODE_ROWS`` rows (the decode step) and K at most
+``DECODE_MAX_K``, one kernel with the row quantizer fused in; otherwise
+(the encoder's rows) the row quantizer, then a ``wgmma`` product
+(``launches_per_call``). The plain version sums the int8 products in f64,
+exact for any K this model has (every partial sum is an integer below
+2^53), so the two agree bit for bit.
 
 Training and prefill never use this path: they run the dense weights.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -34,8 +38,19 @@ from . import _build
 _C127: Dict[torch.device, torch.Tensor] = {}
 _X_MODES = {torch.float32: 0, torch.bfloat16: 1}
 _OUT_MODES = {torch.float32: 0, torch.bfloat16: 1}
-# the wrapper's C entry launches two kernels: the row quantizer, the product
-LAUNCHES_PER_CALL = 2
+# the C entry's fused one-launch path takes at most this many rows and this K
+# (w8a8_matmul.cu: DECODE_ROWS, DECODE_MAX_K)
+DECODE_ROWS = 64
+DECODE_MAX_K = 8192
+
+
+def launches_per_call(m: int, k: int) -> int:
+    """Kernels one ``qmatmul`` of ``m`` rows and depth ``k`` should launch
+    on the card: one (quantizer and product fused) for at most
+    ``DECODE_ROWS`` rows and ``k <= DECODE_MAX_K``, else two (the row
+    quantizer, then the ``wgmma`` product). It decides whether ``qmatmul``
+    passes scratch; what ``qmatmul`` counts is what the C entry reports."""
+    return 1 if m <= DECODE_ROWS and k <= DECODE_MAX_K else 2
 
 
 def _over_127(t: torch.Tensor) -> torch.Tensor:
@@ -90,9 +105,9 @@ def qmatmul(
     """W8A8 matmul: (..., K) activations, (N, K) int8 weights with (N,) f32
     scales and an optional (N,) f32 bias -> (..., N), f32 unless
     ``out_dtype`` (f32 or bf16 on the card) says otherwise. On a CUDA
-    tensor it launches the kernel (``LAUNCHES_PER_CALL`` kernels a call,
-    counted in ``launches``) and raises for what the kernel does not take:
-    K must be a multiple of 16 (16-byte weight rows)."""
+    tensor it launches the kernels, adds to ``launches`` the number the C
+    entry reports it launched, and raises for what they do not take: K
+    must be a multiple of 16 (16-byte weight rows)."""
     if w_q.dim() != 2 or x.shape[-1] != w_q.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} does not match weights {tuple(w_q.shape)}")
     n, k = w_q.shape
@@ -120,19 +135,26 @@ def qmatmul(
     if w_q.data_ptr() % 16:
         raise ValueError("the int8 weights must be 16-byte aligned (the kernel's row loads)")
     x2 = x.reshape(-1, k).contiguous()
+    if x2.data_ptr() % 16:  # the kernels read 16-byte words of a row
+        x2 = x2.clone()
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m:
-        # the codes and the row scales, one buffer: (m, k) int8 then (m,) f32
-        scratch = torch.empty(m * k + 4 * m, dtype=torch.int8, device=x.device)
+        xq_ptr = as_ptr = None
+        if launches_per_call(m, k) == 2:
+            # the codes and the row scales, one buffer: (m, k) int8 then (m,) f32
+            scratch = torch.empty(m * k + 4 * m, dtype=torch.int8, device=x.device)
+            xq_ptr, as_ptr = scratch.data_ptr(), scratch.data_ptr() + m * k
+        launched = ctypes.c_int(0)
         err = _build.load("w8a8_matmul")(
             x2.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), scratch.data_ptr() + m * k, m, n, k,
+            xq_ptr, as_ptr, m, n, k,
             _X_MODES[x.dtype], _OUT_MODES[out_dtype], _build.stream_ptr(x.device),
+            ctypes.byref(launched),
         )
+        qmatmul.launches += launched.value
         _build.check(err, "w8a8_matmul")
-        qmatmul.launches += LAUNCHES_PER_CALL
     return out.reshape(*x.shape[:-1], n)
 
 

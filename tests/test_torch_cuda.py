@@ -710,11 +710,22 @@ def test_flash_bwd_is_deterministic(cuda, mask):
 
 # (M, K, N): the decode step's rows (greedy 4, beam 20, a verify chunk 44),
 # the M, N and K tails (1, 17, 63, 65, 130 rows; 7 and 51865 columns; K
-# 16, 80 and 1040, not multiples of the 64-wide chunk) and the large-M tiling
+# 16, 80 and 1040, not multiples of the 64-wide chunk) and the large-M tiling;
+# the edges of the two one-launch decode kernels and the wgmma path: 64 | 65
+# rows, 128, 129, 300, 700 and 6064 rows, N off the 64-, 128- and 256-column
+# tiles, K 16, 48, 1040 (a 16-byte chunk past a 128-byte segment), 4096 and
+# 8192 (the largest the fused path takes at few rows; 8208 takes two
+# launches); the cluster-free kernel's row groups (17 rows: a group of one;
+# 44 x 4096 columns: groups and a ring of rounds) and the widest N it splits
+# past (4100 columns at 33 rows and K 2048: too many codes, so the cluster)
 W8A8_SHAPES = [
     (4, 1024, 1024), (20, 1024, 4096), (44, 4096, 1024), (4, 1024, 51865),
     (1, 16, 7), (17, 80, 33), (63, 1040, 129), (65, 1024, 1024),
     (130, 4096, 200), (600, 1024, 1024),
+    (64, 1024, 1000), (64, 48, 200), (20, 4096, 1024), (44, 1024, 51865), (4, 4096, 136),
+    (128, 1024, 256), (129, 16, 72), (700, 1040, 1000), (6064, 1024, 1024),
+    (6064, 4096, 1024), (300, 1024, 4100), (64, 8192, 100), (4, 8208, 64),
+    (44, 1024, 4096), (33, 2048, 4100),
 ]
 
 
@@ -726,7 +737,8 @@ W8A8_SHAPES = [
 ])
 def test_w8a8_kernel_equals_plain(cuda, shape, x_dtype, out_dtype, with_bias):
     """Bit for bit: the kernel's codes, scales and epilogue are the plain
-    version's ops, and its int32 sums are exact."""
+    version's ops, and its int32 sums are exact. A call launches
+    ``launches_per_call(M, K)`` kernels: one at M <= 64, two above."""
     m, k, n = shape
     g = torch.Generator(device=cuda).manual_seed(m * 7 + n)
     x = (torch.randn(m, k, generator=g, device=cuda) * 3).to(x_dtype)
@@ -736,10 +748,96 @@ def test_w8a8_kernel_equals_plain(cuda, shape, x_dtype, out_dtype, with_bias):
     launches = tquant.qmatmul.launches
     got = tquant.qmatmul(x, w_q, w_s, bias, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert tquant.qmatmul.launches == launches + tquant.LAUNCHES_PER_CALL
+    assert tquant.qmatmul.launches == launches + tquant.launches_per_call(m, k)
+    assert tquant.launches_per_call(m, k) == (1 if m <= 64 and k <= 8192 else 2)
     ref = tquant.qmatmul_plain(x, w_q, w_s, bias, out_dtype=out_dtype)
     assert got.dtype == out_dtype and got.shape == (m, n)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4, 1024, 1024), (44, 4096, 1024), (20, 1024, 51865),
+                                   (6064, 1024, 4096)])
+def test_w8a8_is_deterministic(cuda, m, k, n):
+    """No atomics touch a sum: two calls on the same inputs give the same
+    bits (the cluster path's partial sums meet in a fixed rank)."""
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    w_q, w_s = tquant.quantize_weight(torch.randn(n, k, generator=g, device=cuda) * 0.05)
+    bias = torch.randn(n, generator=g, device=cuda)
+    first = tquant.qmatmul(x, w_q, w_s, bias, out_dtype=torch.bfloat16)
+    second = tquant.qmatmul(x, w_q, w_s, bias, out_dtype=torch.bfloat16)
+    assert torch.equal(first, second)
+
+
+def _identity_codes(cuda, x):
+    """(kernel, plain) outputs of x (M, 1024) through 127 I: the int8 weight
+    127 with scale RN(1/127) on the diagonal, so y[m, n] = 127 code[m, n]
+    a_s[m] w_s: equal outputs mean equal codes."""
+    w_q, w_s = tquant.quantize_weight(torch.eye(x.shape[1], device=cuda))
+    return (tquant.qmatmul(x, w_q, w_s, out_dtype=torch.float32),
+            tquant.qmatmul_plain(x, w_q, w_s, out_dtype=torch.float32))
+
+
+def _past_local_k(x):
+    """x (M, 1024) with zero columns up to K = 4096: past the cluster-free
+    kernel's K, so the decode rows take the cluster kernel."""
+    return np.pad(x, ((0, 0), (0, 4096 - x.shape[1])))
+
+
+@pytest.mark.cuda
+def test_w8a8_codes_are_the_ieee_quotients(cuda):
+    """The kernels compute round(x / s) from RN(1 / s) and one FMA
+    correction, not by a division: their codes must be the plain version's
+    (a true IEEE division, then round half to even). Large-M path: every f32
+    in [s / 4, 127 s] for three row maxima (below s / 4 every code is 0).
+    Decode paths (M <= 64, f32 and bf16; at K = 1024 the cluster-free
+    kernel, 16 rows in one CTA or 64 in four row groups; padded with zeros
+    to K = 4096, the cluster one): every value within two ulps of each
+    rounding tie (n + 1/2) s, n = 0 .. 126, of 64 row maxima, and every
+    bf16 in [s / 4, 127 s] for 32 row maxima."""
+    for amax in (1.0, 3.7e-3, 212.34567):
+        s = np.float32(amax) / np.float32(127)
+        lo = np.float32(s / 4).view(np.int32)
+        hi = np.float32(amax).view(np.int32)
+        vals = np.arange(lo, hi, dtype=np.int64).astype(np.int32).view(np.float32)
+        rows = -(-vals.size // 1023)
+        x = np.zeros((rows, 1024), np.float32)
+        x[:, 0] = amax
+        x[:, 1:].flat[: vals.size] = vals
+        x[1::2, 1:] *= -1  # negative values round half to even too
+        for i in range(0, rows, 16384):
+            got, ref = _identity_codes(cuda, torch.from_numpy(x[i:i + 16384]).to(cuda))
+            assert torch.equal(got, ref), amax
+    rng = np.random.default_rng(0)
+    amax = rng.uniform(0.5, 2.0, 64).astype(np.float32) * np.float32(10.0) ** rng.integers(-8, 6, 64)
+    x = np.zeros((64, 1024), np.float32)
+    for r, a in enumerate(amax):
+        s = a / np.float32(127)
+        ties = np.float32(np.arange(127) + 0.5) * s
+        up1 = np.nextafter(ties, np.float32(np.inf))
+        dn1 = np.nextafter(ties, np.float32(0))
+        near = np.concatenate([ties, up1, dn1, np.nextafter(up1, np.float32(np.inf)),
+                               np.nextafter(dn1, np.float32(0))])
+        x[r, 0] = a
+        x[r, 1:1 + near.size] = near * np.where(np.arange(near.size) % 2, -1, 1)
+    for rows in [x[i:i + 16] for i in range(0, 64, 16)] + [x, _past_local_k(x)]:
+        got, ref = _identity_codes(cuda, torch.from_numpy(rows).to(cuda))
+        assert torch.equal(got, ref)
+    b16 = (np.arange(0, 1 << 15, dtype=np.int32) << 16).view(np.float32)  # every bf16 >= 0
+    xb = np.zeros((64, 1024), np.float32)
+    for j in range(32):  # two rows a row maximum 2^(j - 12)
+        a = np.float32(2.0 ** (j - 12))
+        s = a / np.float32(127)
+        vals = b16[(b16 >= s / 4) & (b16 <= a)]
+        assert vals.size <= 2 * 1023
+        for h in range(2):
+            part = vals[h * 1023:(h + 1) * 1023]
+            xb[2 * j + h, 0] = a
+            xb[2 * j + h, 1:1 + part.size] = part
+    for rows in [xb[i:i + 16] for i in range(0, 64, 16)] + [xb, _past_local_k(xb)]:
+        got, ref = _identity_codes(cuda, torch.from_numpy(rows).to(cuda).bfloat16())
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.cuda

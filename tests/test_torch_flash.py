@@ -157,18 +157,53 @@ def test_lib_path_hashes_the_hopper_headers(tmp_path, monkeypatch, header):
     assert all(a != b for a, b in zip(after, before))
 
 
+def _w8a8_paths():
+    """w8a8_matmul.cu split at its large-M section: (decode part, large-M
+    part)."""
+    text = (_build.CSRC / "w8a8_matmul.cu").read_text()
+    decode, large = text.split("// ---- 2. large M", 1)
+    return decode, large
+
+
 def test_bf16_flash_kernels_are_wgmma_only():
-    """No mma.sync is left in csrc/ but the W8A8 kernel's (an int8
-    product, not a flash kernel): the bf16 flash kernels run on wgmma, the
-    backward library through its two Hopper kernels."""
+    """No mma.sync is left in csrc/ but one: the W8A8 decode kernels' s8
+    m16n8k32 helper (4 to 64 rows, where a 64-row wgmma tile would be
+    mostly padding); the bf16 flash kernels run on wgmma, the backward
+    library through its two Hopper kernels."""
     sources = {p.name: p.read_text() for p in _build.CSRC.glob("*.cu*")}
     assert "sm90.cuh" in sources
     assert not [n for n, text in sources.items()
                 if "mma.sync" in text and n != "w8a8_matmul.cu"]
+    decode, large = _w8a8_paths()
+    assert sources["w8a8_matmul.cu"].count("mma.sync.aligned") == 1
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in decode
+    assert "mma_s8(" not in large
     bwd = sources["flash_attention_bwd.cu"]
     assert '#include "sm90.cuh"' in bwd
     for kernel in ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel"):
         assert re.search(kernel + r"<[^>]*><<<", bwd), f"{kernel} is not launched"
+
+
+def test_w8a8_large_m_path_launches_a_wgmma_s8_kernel():
+    """Past the decode rows the entry launches the row quantizer and then
+    w8a8_gemm_sm90_kernel, whose consumers run s8 wgmma (m64n128k32, both
+    operands K-major from shared memory) on a ring that a TMA producer
+    fills (full / empty mbarriers)."""
+    sm90 = (_build.CSRC / "sm90.cuh").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8" in sm90
+    assert "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes" in sm90
+    decode, large = _w8a8_paths()
+    assert re.search(r"w8a8_gemm_sm90_kernel<OutT><<<", large)
+    assert re.search(r"quantize_rows_kernel<XT><<<", large)
+    kernel = large[large.index("w8a8_gemm_sm90_kernel("):large.index("cuTensorMapEncodeTiled through")]
+    for piece in ("wgmma_s8_ss_n128(", "tma_load_2d(", "mbar_wait(full(", "mbar_arrive(empty(",
+                  "mbar_arrive_expect_tx(", "wgmma_commit()", "wgmma_wait<1>()"):
+        assert piece in kernel, piece
+    assert int(re.search(r"STAGES = (\d+)", large).group(1)) >= 2
+    # every M past DECODE_ROWS (and K past DECODE_MAX_K) takes this path
+    entry = large[large.index('extern "C" int w8a8_matmul('):]
+    assert "if (M <= DECODE_ROWS && K <= DECODE_MAX_K) {" in entry
+    assert "launch_gemm<" in entry.split("if (M <= DECODE_ROWS && K <= DECODE_MAX_K) {")[1]
 
 
 def test_load_declares_every_entry_of_a_library(tmp_path, monkeypatch):

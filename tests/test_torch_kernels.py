@@ -298,6 +298,27 @@ def test_top_k_ties_break_as_jax(seed):
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(ref_v))
 
 
+def test_w8a8_launch_rule_matches_the_c_entry():
+    """``launches_per_call`` (by which ``qmatmul`` passes scratch, and which
+    the card's counts are held to) is the C entry's rule: one kernel for M
+    <= DECODE_ROWS and K <= DECODE_MAX_K, else two; the wrapper's constants
+    are the source's."""
+    import re
+
+    from robustsq_whisper_torch.ops import _build
+    from robustsq_whisper_torch.ops import quant as tq
+
+    src = (_build.CSRC / "w8a8_matmul.cu").read_text()
+    const = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert tq.DECODE_ROWS == const["DECODE_ROWS"]
+    assert "DECODE_MAX_K = MAX_CLUSTER * MAX_SEGS * SEG;" in src
+    assert tq.DECODE_MAX_K == const["MAX_CLUSTER"] * const["MAX_SEGS"] * const["SEG"]
+    cases = {(1, 16): 1, (4, 1024): 1, (44, 4096): 1, (64, 8192): 1, (65, 1024): 2,
+             (6064, 1024): 2, (4, 8208): 2}
+    for (m, k), want in cases.items():
+        assert tq.launches_per_call(m, k) == want, (m, k)
+
+
 def test_ctypes_signatures_match_the_c_entry_points():
     """Every extern "C" entry point in csrc/ is declared in _build with its
     parameters in order: pointers (and the stream) as void*, sizes as int.

@@ -6,12 +6,14 @@ be compared on one card.
 
 ``--root`` is a checkout holding ``chip_smoke.py`` and
 ``robustsq_whisper_torch/`` (this one by default). The script builds that
-tree's kernels and runs that tree's own ``chip_smoke.check_kernels`` and
-``chip_smoke.check_flash_kernels``: each kernel against its plain version
-at the Whisper-medium shapes, with its median device time (CUDA-graph
-replay), its plain version's, its bound and the library call's. Then
-this script's own ``chip_smoke.cross_cold_times`` times that tree's packed
-int4 cross kernel with every layer read cold (the main path's 24-layer
+tree's kernels and runs that tree's own ``chip_smoke.check_kernels``,
+``chip_smoke.check_flash_kernels`` and ``chip_smoke.check_w8a8_kernel``:
+each kernel against its plain version at the Whisper-medium shapes, with
+its median device time (CUDA-graph replay), its plain version's, its bound
+and the library call's (the W8A8 row at every decode and encoder shape,
+beside ``torch._int_mm`` and bf16 ``F.linear``). Then this script's own
+``chip_smoke.cross_cold_times`` times that tree's packed int4 cross
+kernel with every layer read cold (the main path's 24-layer
 sweep and the JAX bench's batch 128 greedy and batch 64 x 5 beam shapes),
 so two trees are timed there by the same code, and its own
 ``chip_smoke.self_main_times`` and ``chip_smoke.self_cold_times`` time
@@ -61,6 +63,7 @@ def main() -> int:
     chip_smoke.log(f"tree {root}; kernel build {secs:.1f} s")
     rows = chip_smoke.check_kernels(torch, dev, 4, 32, 5)
     rows += chip_smoke.check_flash_kernels(torch, dev)
+    rows.append(chip_smoke.check_w8a8_kernel(torch, dev))
     spec = importlib.util.spec_from_file_location("chip_smoke_timer", os.path.join(HERE, "chip_smoke.py"))
     timer = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(timer)
