@@ -144,6 +144,28 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    quantizer or ``wgmma`` kernel; the encode's 144 quantizers and 144
    ``wgmma`` products, no fused kernel). Phase 3 holds W8A8 greedy and beam 3 on
    the card to the CPU's tokens;
+4g. multi-GPU (``run_multi_gpu_decode``, ``run_one_card_ranks``, and
+   inside phases 4b and 5). At world 1: ``init_distributed`` joins a
+   one-process NCCL group (a failed init fails the run) and one NCCL
+   all-reduce runs; on a ``(1, 1)`` ``make_mesh``, greedy and beam 5 at
+   medium (4's settings) through ``build_decode_fns(mesh=)`` and through
+   ``build_sharded_decoder`` directly must give the unsharded decode's
+   tokens with the same launch count of every kernel (at one rank the
+   sharded code is the unsharded code: this checks the wiring, not the
+   sharding). With collectives: ``multi_gpu_check.py --one-card`` under
+   ``python -m torch.distributed.run --nproc_per_node 2``, two gloo ranks
+   on the one card, decodes 8 pairs data-parallel at medium, greedy and
+   beam 5, each rank's rows bit-equal to its decode of them alone with the
+   same launches, and takes one DP and one FSDP lora step at batch 8
+   within that script's bars of one device's step, rows 4, 5a and 5b
+   launched on each rank; in phase 4b, ``cli.decode --data_parallel true`` under
+   ``python -m torch.distributed.run --nproc_per_node 1`` (this script's
+   ``torchrun-decode`` mode, the 4b tokenizer swap applied) must write 4b's
+   greedy ``text`` byte for byte and launch the greedy kernels; in phase
+   5, before the timed steps, one data-parallel and one FSDP
+   ``make_train_step`` of the medium lora model on that mesh must give the
+   unsharded step's loss and gradient norm (to 1e-6 relative) and launch
+   rows 4, 5a and 5b as often;
 5. training: the three flash-attention training kernels (forward, dQ,
    dK/dV) against their plain versions at the medium training shape
    (batch 8 x 16 heads, T = 1500 + 16, bf16) and with a mask at a smaller
@@ -197,6 +219,15 @@ BENCH_BEAM = (64 * 5, 152, 85)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def free_port() -> int:
+    """A free TCP port on this host (a process group's rendezvous)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
 
 
 def gpu_info() -> str:
@@ -1311,7 +1342,7 @@ def run_train_paths(torch, dev):
     log(f"medium training model: {sum(p.numel() for p in model.parameters())} "
         f"parameters, seeded init {time.perf_counter() - t0:.1f} s")
     counters = launch_counters()
-    launches, rates, profiled = {}, {}, None
+    launches, rates, profiled = check_sharded_steps(torch, dev, model, dims.n_vocab), {}, None
     for path, (mode, mu) in TRAIN_MODES.items():
         cfg = TrainConfig(mode=mode, optim=OptimConfig(moment_dtype=mu))
         b = TRAIN_B
@@ -1457,17 +1488,24 @@ def medium_models(torch, dev):
     return dims, enc, dec
 
 
-def engine_for(torch, dev, enc, dec, batch: int, max_new: int, **cfg):
+def serving_config(max_new: int, **cfg):
+    """The main paths' DecodeConfig: int4 cross K/V kernel, stop early."""
     from robustsq_whisper_torch.decode.search import DecodeConfig
-    from robustsq_whisper_torch.serve import EngineConfig, TranscriptionEngine
-    from robustsq_whisper_torch.tokenizer import ByteTokenizer, special_tokens
+    from robustsq_whisper_torch.tokenizer import special_tokens
 
     st = special_tokens(multilingual=True)
-    dcfg = DecodeConfig(
+    return DecodeConfig(
         max_new_tokens=max_new, eot=st.eot,
         init_tokens=st.sot_sequence("en", "transcribe", True),
         quantize_cross_kv=True, stop_early=True, **cfg,
     )
+
+
+def engine_for(torch, dev, enc, dec, batch: int, max_new: int, **cfg):
+    from robustsq_whisper_torch.serve import EngineConfig, TranscriptionEngine
+    from robustsq_whisper_torch.tokenizer import ByteTokenizer
+
+    dcfg = serving_config(max_new, **cfg)
     return TranscriptionEngine(
         enc, dec, ByteTokenizer(), dcfg,
         EngineConfig(batch_size=batch, speech_seconds=30.0, enroll_seconds=10.0),
@@ -1620,6 +1658,185 @@ LAYOUT_PATHS = {  # path: (decoder flags, config, kernels it must launch)
         ("decode_cross_attention", "flash_attention_tmaj"),
     ),
 }
+
+
+MESH_PATHS = {  # phase 4g: path -> (decode config, kernels the decoder must launch)
+    "greedy": ({}, ("decode_cross_attention", "decode_self_attention")),
+    "beam 5": (dict(beam_size=5), ("decode_cross_attention_grouped", "beam_reorder_cache",
+                                   "decode_self_attention")),
+}
+
+
+def run_multi_gpu_decode(torch, dev, models, batch: int, max_new: int):
+    """Phase 4g, serving: a one-process NCCL group and a (1, 1) mesh;
+    greedy and beam 5 through ``build_decode_fns(mesh=)`` and
+    ``build_sharded_decoder`` against the unsharded decode: the same tokens
+    and launches. Returns ({path: launches}, the mesh)."""
+    import torch.distributed as dist
+
+    from robustsq_whisper_torch.decode.pipeline import build_decode_fns
+    from robustsq_whisper_torch.decode.sharded import build_sharded_decoder
+    from robustsq_whisper_torch.parallel.mesh import init_distributed, local_rows, make_mesh
+
+    t_phase = time.perf_counter()
+    world = init_distributed(f"tcp://localhost:{free_port()}", 1, 0, device=dev)
+    one = torch.ones(4, device=dev)
+    dist.all_reduce(one)
+    torch.cuda.synchronize()
+    if world != 1 or dist.get_backend() != "nccl" or not bool((one == 1).all()):
+        raise AssertionError(f"process group: world {world}, backend {dist.get_backend()}, "
+                             f"all-reduce of ones {one.tolist()}")
+    mesh = make_mesh(1, 1)
+    log(f"multi-GPU: NCCL process group at world 1 ({time.perf_counter() - t_phase:.1f} s), "
+        f"mesh {mesh}")
+    dims, enc, dec = models
+    staged = engine_for(torch, dev, enc, dec, batch, max_new).stage(synthetic_pairs(batch, seed=0))
+    launches = {}
+    for path, (cfg, expect) in MESH_PATHS.items():
+        dcfg = serving_config(max_new, **cfg)
+        encode, run = build_decode_fns(enc, dec, dcfg, device=dev)
+        s_encode, s_run = build_decode_fns(enc, dec, dcfg, mesh=mesh, device=dev)
+        direct = build_sharded_decoder(dec, dcfg, mesh, dev)
+        memory, prompt = encode(*staged)
+        runs = {  # name: (the call, its unsharded counterpart)
+            "build_decode_fns(mesh)": (lambda: s_run(*s_encode(*staged)),
+                                       lambda: run(*encode(*staged))),
+            "build_sharded_decoder": (
+                lambda: direct(local_rows(memory, mesh), local_rows(prompt, mesh)),
+                lambda: run(memory, prompt)),
+        }
+        for name, (sharded, plain) in runs.items():
+            ref, _, counts_u = counted(torch, plain)
+            got, _, counts_s = counted(torch, sharded)
+            if not torch.equal(got[0], ref[0]) or counts_s != counts_u:
+                raise AssertionError(f"{path} {name}: tokens equal {torch.equal(got[0], ref[0])}, "
+                                     f"launches {counts_s} vs unsharded {counts_u}")
+            launches[f"{path} {name}"] = counts_s
+        missing = [n for n in expect if launches[f"{path} build_sharded_decoder"][n] == 0]
+        if missing:
+            raise AssertionError(f"{path}: kernels not launched through the mesh: {missing}")
+    log(f"multi-GPU at world 1 on {gpu_info()}: tokens and every kernel's launches equal the "
+        f"unsharded decode's ({time.perf_counter() - t_phase:.1f} s); at one rank the sharded "
+        f"code is the unsharded code, so no time is compared")
+    return launches, mesh
+
+
+def run_one_card_ranks(torch):
+    """Phase 4g, the sharded code with its collectives: two gloo ranks on
+    the one card (``multi_gpu_check.py --one-card`` under
+    ``torch.distributed.run --nproc_per_node 2``) decode greedy and beam 5
+    data-parallel, each rank's rows bit-equal to its decode of them alone
+    with the same launches, and take one DP and one FSDP lora step within
+    that script's bars of one device's. Returns {path: rank 0's launches}."""
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+           "--master_port", str(free_port()), os.path.join(ROOT, "multi_gpu_check.py"),
+           "--one-card"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"two gloo ranks on one card: rc {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-6000:]}")
+    rec = json.loads([ln for ln in proc.stdout.splitlines() if ln.startswith("{")][-1])
+    log(f"multi-GPU, two gloo ranks on one card ({time.perf_counter() - t0:.1f} s with the "
+        f"launcher) on {gpu_info()}: {json.dumps(rec)}")
+    return {f"{path} (2 gloo ranks)": v["launches_by_rank"][0]
+            for path, v in rec.items() if isinstance(v, dict) and "launches_by_rank" in v}
+
+
+def torchrun_decode(argv) -> int:
+    """This script's ``torchrun-decode`` mode (phase 4g): ``cli.decode``
+    under ``torch.distributed.run``, with phase 4b's tokenizer swap; prints
+    its launches as a JSON line."""
+    import torch
+
+    from robustsq_whisper_torch.cli import decode as cli_decode
+    from robustsq_whisper_torch.tokenizer import whisper_tokenizer
+
+    load_tokenizer = whisper_tokenizer.load_tokenizer
+    whisper_tokenizer.load_tokenizer = lambda assets: TokenIds(load_tokenizer(assets))
+    rc, wall, counts = counted(torch, lambda: cli_decode.main(argv))
+    print(json.dumps({"rc": rc, "main_s": wall, "launches": counts}))
+    return rc
+
+
+def run_torchrun_decode(torch, argv, out_dir: str):
+    """Phase 4g inside 4b: ``cli.decode --data_parallel true`` under
+    ``torch.distributed.run --nproc_per_node 1``; its ``text`` must be
+    ``out_dir``'s byte for byte. Returns {path: launches}."""
+    out = out_dir + "_torchrun"
+    argv = [out if a == out_dir else a for a in argv] + ["--data_parallel", "true"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+           "--master_port", str(free_port()), os.path.abspath(__file__), "torchrun-decode",
+           *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=400)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun cli.decode: rc {proc.returncode}\n{proc.stderr[-4000:]}")
+    rec = json.loads([ln for ln in proc.stdout.splitlines() if ln.startswith("{")][-1])
+    with open(os.path.join(out_dir, "text"), "rb") as f, open(os.path.join(out, "text"), "rb") as g:
+        same = f.read() == g.read()
+    missing = [n for n in GREEDY_KERNELS if rec["launches"][n] == 0]
+    if not same or missing or rec["rc"] != 0:
+        raise AssertionError(f"torchrun cli.decode: text equal {same}, kernels not launched "
+                             f"{missing}, rc {rec['rc']}")
+    log(f"multi-GPU: cli.decode --data_parallel true under torch.distributed.run "
+        f"--nproc_per_node 1 on {gpu_info()}: {wall:.1f} s with the launcher ({rec['main_s']:.1f} "
+        f"s in main), text byte-identical to phase 4b's greedy; launches {rec['launches']}")
+    return {"cli.decode torchrun": rec["launches"]}
+
+
+def check_sharded_steps(torch, dev, model, vocab: int):
+    """Phase 4g, training: one lora step of the medium model unsharded,
+    data-parallel and FSDP on a (1, 1) mesh, each from the same weights and
+    a fresh optimizer, after one warm-up step: the same loss and gradient
+    norm (1e-6 relative), rows 4, 5a and 5b launched as in
+    ``TRAIN_KERNELS``. Returns {path: launches}."""
+    from robustsq_whisper_torch.parallel.mesh import make_mesh
+    from robustsq_whisper_torch.train import OptimConfig, TrainConfig
+    from robustsq_whisper_torch.train import create_train_state, make_train_step
+    from robustsq_whisper_torch.train.lora import detach_lora
+    from robustsq_whisper_torch.train.step import FROZEN_BACKBONE_TRAINABLE, trainable_mask
+
+    mesh = make_mesh(1, 1)
+    mask = trainable_mask(model, FROZEN_BACKBONE_TRAINABLE)
+    saved = {n: p.detach().clone() for n, p in model.named_parameters() if mask[n]}
+    batch = train_batch(torch, dev, TRAIN_B, vocab)
+    launches, report, ref = {}, {}, None
+    paths = {"warm-up": (None, False), "train lora": (None, False),
+             "train lora DP": (mesh, False), "train lora FSDP": (mesh, True)}
+    for path, (m, fsdp) in paths.items():
+        detach_lora(model)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n in saved:
+                    p.copy_(saved[n])
+        cfg = TrainConfig(mode="lora", optim=OptimConfig(), fsdp=fsdp)
+        state = create_train_state(model, cfg, device=dev, mesh=m)
+        step = make_train_step(model, cfg, device=dev, mesh=m)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        (_, stats), _, counts = counted(torch, lambda: step(state, batch, gen, 0))
+        got = (stats["loss"].item(), stats["grad_norm"].item())
+        wrong = {n: counts[n] for n, want in TRAIN_KERNELS.items() if counts[n] != want}
+        ref = got if ref is None else ref
+        del state, step
+        torch.cuda.empty_cache()
+        if path == "warm-up":  # the first step of the process pays for its allocations
+            continue
+        if wrong or not np.allclose(got, ref, rtol=1e-6, atol=0):
+            raise AssertionError(f"{path}: loss, grad norm {got} vs unsharded {ref}; launches "
+                                 f"{wrong}, want {TRAIN_KERNELS}")
+        launches[path] = counts
+        report[path] = {"loss": got[0], "grad_norm": got[1]}
+    detach_lora(model)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n in saved:
+                p.copy_(saved[n])
+    log(f"multi-GPU training on {gpu_info()} (first step from the same weights, batch "
+        f"{TRAIN_B}; loss and grad norm equal the unsharded step's): {json.dumps(report)}")
+    return {k: v for k, v in launches.items() if k != "train lora"}
 
 
 def run_layout_paths(torch, dev, models, batch: int, max_new: int):
@@ -1864,6 +2081,7 @@ def run_entry_points(torch, dev):
             f"{len(restored)} tensors")
         del restored
 
+        argvs = {}
         for path, (beam, expect) in ENTRY_PATHS.items():
             inf = os.path.join(root, f"decode_beam{beam}.yaml")
             with open(inf, "w") as f:
@@ -1874,6 +2092,7 @@ def run_entry_points(torch, dev):
                     "--expdir", os.path.join(root, "exp"), "--output_dir", out,
                     "--cross_kv_bits", "4", "--batch_size", "4",
                     "--tokenizer_assets", ENTRY_RANKS, "--device", str(dev)]
+            argvs[path] = (argv, out)
             rc, wall, counts = counted(torch, lambda: cli_decode.main(argv))
             launches[path] = counts
             hyps = kaldi_io.read_scp(os.path.join(out, "text"))
@@ -1904,6 +2123,7 @@ def run_entry_points(torch, dev):
                             "decode_s": ref.wall_seconds}
         log("entry points: cli.decode hypotheses from the checkpoint equal the in-memory "
             "model's, greedy and beam 5")
+        launches.update(run_torchrun_decode(torch, *argvs["cli.decode greedy"]))
 
         args = cli_serve.parse_args([
             "--config", ENTRY_CONFIG, "--inference_config", os.path.join(root, "decode_beam1.yaml"),
@@ -3158,6 +3378,8 @@ def profile_runs(torch, greedy, beam, train) -> None:
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 1 and sys.argv[1] == "torchrun-decode":
+        return torchrun_decode(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3188,6 +3410,8 @@ def main() -> int:
     w8a8_row, w8a8_launches, w8a8_greedy, w8a8_encode = run_w8a8_paths(
         torch, dev, models, batch, max_new, reports)
     rows.append(w8a8_row)
+    mesh_launches, _ = run_multi_gpu_decode(torch, dev, models, batch, max_new)
+    mesh_launches.update(run_one_card_ranks(torch))
     entry_launches = run_entry_points(torch, dev)
     train_entry_launches, cli_rate = run_train_entry(torch, dev)
     embed_launches = run_embedding_enrollment(torch, dev)
@@ -3199,12 +3423,13 @@ def main() -> int:
     profile_w8a8(torch, w8a8_greedy, w8a8_encode, batch)
     by_path = {"greedy": greedy_launches, **beam_launches, **layout_launches, **asr_launches,
                **w8a8_launches, **entry_launches, **train_entry_launches, **embed_launches,
-               **train_launches}
+               **train_launches, **mesh_launches}
     for r in rows:  # launches on the path this row's kernel was ported for
         r["launches"] = by_path[OWN_PATH.get(r["name"], "greedy")][r["name"]]
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r.pop("tol")
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    torch.distributed.destroy_process_group()  # phase 4g's
     print(json.dumps({"kernels": rows}))
     print(gpu_info())
     print(json.dumps({

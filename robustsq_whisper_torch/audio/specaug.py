@@ -9,7 +9,9 @@ Drawing the masks (``draw_masks``) is kept apart from applying them
 (``apply_masks``), so given masks can be applied. The draws use the
 ``generator`` passed in and stay on the features' device (no host sync);
 torch's streams differ from ``jax.random``, so only the distribution is
-shared with the JAX package.
+shared with the JAX package. Under data parallelism the masks are drawn for
+the whole batch (its lengths gathered) and each rank keeps its rows, so
+that the draw is one device's.
 """
 
 from __future__ import annotations
@@ -59,8 +61,22 @@ def draw_masks(
     generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(keep_f (batch, n_mels), keep_t (batch, frames)) boolean masks."""
+    from ..parallel.mesh import data_group, gather_batch
+
     b, n_mels, frames = feats.shape
     dev = feats.device
+    group = data_group()
+    if group is not None:
+        n = torch.distributed.get_world_size(group)
+        r = torch.distributed.get_rank(group)
+        lens = None if feat_lens is None else gather_batch(feat_lens.to(dev))
+        masks = _draw(b * n, n_mels, frames, lens, cfg, generator, dev)
+        return tuple(m[r * b:(r + 1) * b] for m in masks)
+    return _draw(b, n_mels, frames, feat_lens, cfg, generator, dev)
+
+
+def _draw(b, n_mels, frames, feat_lens, cfg, generator, dev):
+    """``draw_masks`` for ``b`` rows of ``(n_mels, frames)`` features."""
     keep_f = _mask_axis(
         b, n_mels, cfg.num_freq_masks,
         torch.full((b,), cfg.freq_mask_width, device=dev), generator,

@@ -34,9 +34,18 @@ the config's seeded random init. Besides greedy and beam search:
   ``{enroll_prefix}.scp`` of the data dir (greedy, beam, speculative and
   joint CTC; not ``--long_audio``).
 
-The flag combinations the JAX CLI refuses stop with its messages. Paths
-the port does not have yet (``UNSUPPORTED``) stop with a message naming
-their ROADMAP item.
+Several GPUs: launch one process per GPU with ``python -m
+torch.distributed.run --nproc_per_node N -m
+robustsq_whisper_torch.cli.decode ...``. ``--data_parallel`` (default
+true) splits each batch's rows over the ranks (``batch_size`` rounded up
+to a multiple of them) and ``--model_parallel M`` (dividing the world)
+splits the weights over groups of M ranks on the dense path (no flash, no
+W8A8, no quantized cross K/V, the 5-D self cache), as the JAX CLI does;
+rank 0 writes the files. ``--draft_path`` and ``--ctc_weight`` decode on
+one device and drop ``--data_parallel`` with the JAX CLI's warnings. One
+process on a host with several GPUs decodes on one of them.
+
+The flag combinations the JAX CLI refuses stop with its messages.
 """
 
 from __future__ import annotations
@@ -49,13 +58,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-# flags of paths the port does not have yet: (flag, is it set?, ROADMAP item)
-UNSUPPORTED = (
-    ("--model_parallel", lambda a: a.model_parallel > 1,
-     "tensor-parallel serving is ROADMAP A15 (multi-GPU)"),
-)
-
-
 def str2bool(v: str) -> bool:
     """Strict boolean flag values: true/false/1/0/yes/no/on/off."""
     lv = v.lower()
@@ -64,12 +66,6 @@ def str2bool(v: str) -> bool:
     if lv in ("false", "0", "no", "off"):
         return False
     raise argparse.ArgumentTypeError(f"expected a boolean, got {v!r}")
-
-
-def check_supported(parser: argparse.ArgumentParser, args, flags=UNSUPPORTED) -> None:
-    for flag, is_set, why in flags:
-        if is_set(args):
-            parser.error(f"{flag}: {why}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -99,7 +95,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tanh-approximate GELU in the encoder")
     p.add_argument("--int8_weights", type=str2bool, default=False)
     p.add_argument("--data_parallel", type=str2bool, default=True,
-                   help="a no-op on one device")
+                   help="split each batch over the ranks of a multi-process launch "
+                   "(a no-op on one device)")
     p.add_argument("--long_audio", type=str2bool, default=False)
     p.add_argument("--chunk_seconds", type=float, default=30.0)
     p.add_argument("--prefill_quantized", type=str2bool, default=False,
@@ -119,7 +116,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--minlenratio", type=float, default=0.0)
     p.add_argument("--min_new_tokens", type=int, default=0,
                    help="suppress eot until this many tokens were emitted")
-    p.add_argument("--model_parallel", type=int, default=1)
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="tensor-parallel group size (must divide the world size)")
     p.add_argument("--timestamps", type=str2bool, default=False)
     p.add_argument("--enroll_type", default=None, choices=["audio", "embedding"],
                    help="enrollment modality: audio (the Qformer on the enrollment "
@@ -256,6 +254,8 @@ class Decoding:
     device: torch.device
     dtype: torch.dtype
     draft_sd: Optional[Dict[str, torch.Tensor]] = None  # --draft_path's weights
+    mesh: Any = None  # the (data, model) mesh of a multi-process decode
+    batch_size: int = 8  # the flag's, rounded up to a multiple of the data axis
 
     def modules(self, state_dict: Dict[str, torch.Tensor]):
         from ..decode.pipeline import serving_modules
@@ -266,8 +266,9 @@ class Decoding:
             exp.resolved_dims(), exp.ts, exp.model, state_dict, self.dtype, self.device,
             cross_kv_bits=self.args.cross_kv_bits,
             self_kv_bits=self.args.self_kv_bits,
-            # speculative decode needs the 5-D cache's per-row writes
-            flat_self_cache=not spec,
+            # speculative decode needs the 5-D cache's per-row writes, and
+            # tensor parallelism the 5-D cache's local heads
+            flat_self_cache=not spec and self.args.model_parallel <= 1,
         )
 
     def draft(self, decoder):
@@ -294,8 +295,7 @@ def prepare(argv=None) -> Decoding:
             "--model_parallel serving of the embedding-enrollment encoder is "
             "not wired up; decode with --model_parallel 1"
         )
-    check_supported(parser, args)
-    device = resolve_device(args.device)
+    device, world, tp = distributed_setup(parser, args)
     exp = load_exp(args)
     if args.enroll_type is not None:
         exp = dataclasses.replace(
@@ -305,9 +305,18 @@ def prepare(argv=None) -> Decoding:
             "--long_audio windows share one Qformer speaker prompt and is "
             "audio-enrollment only; the embedding path decodes fixed windows"
         )
-    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        logging.info("--data_parallel: decoding on one device (multi-GPU is ROADMAP A15)")
+    if args.long_audio and tp > 1:
+        parser.error(
+            "--long_audio decodes per-utterance window batches on one device "
+            "and cannot shard the weights; it is incompatible with "
+            "--model_parallel (use the fixed-window path for TP serving)"
+        )
     spec = max(0, args.speculative_gamma)
+    if spec and tp > 1:
+        parser.error(
+            "--speculative_gamma is incompatible with --model_parallel: "
+            "the ragged verify path is single-chip/DP only"
+        )
     draft_sd = None
     if args.draft_path:
         if not spec:
@@ -315,6 +324,12 @@ def prepare(argv=None) -> Decoding:
         if args.long_audio:
             parser.error("--draft_path is incompatible with --long_audio")
         draft_sd = read_draft(args)
+        if args.data_parallel and world > 1:
+            logging.warning(
+                "--draft_path decoding is single-device; dropping "
+                "--data_parallel"
+            )
+            args.data_parallel = False
     dcfg = decode_config(
         exp, args,
         min_new_tokens=max(0, args.min_new_tokens),
@@ -338,8 +353,12 @@ def prepare(argv=None) -> Decoding:
             "sizes > 1, --speculative_gamma, --long_audio and --ctc_weight "
             "(the joint decoder applies no timestamp rules)"
         )
+    if tp > 1:
+        dcfg = dataclasses.replace(
+            dcfg, quantize_cross_kv=False, quantize_weights=False, prefill_quantized=False,
+        )
     if dcfg.ctc_decode_weight > 0:
-        if spec or args.long_audio:
+        if spec or args.long_audio or tp > 1:
             parser.error(
                 "--ctc_weight joint decoding is the single-device plain "
                 "path: incompatible with --speculative_gamma, --long_audio "
@@ -354,9 +373,72 @@ def prepare(argv=None) -> Decoding:
         dcfg = dataclasses.replace(
             dcfg, quantize_cross_kv=False, quantize_weights=False, prefill_quantized=False,
         )
+        # single-device joint path: no DP mesh
+        if args.data_parallel and world > 1:
+            logging.warning(
+                "--ctc_weight joint decoding is single-device; dropping "
+                "--data_parallel"
+            )
+        args.data_parallel = False
+    mesh, batch_size = None, args.batch_size
+    if not args.long_audio:
+        mesh, batch_size = make_decode_mesh(args, world, tp)
     tokenizer = load_tokenizer(args.tokenizer_assets)
     dataset = open_dataset(exp, args, tokenizer, args.enroll_prefix)
-    return Decoding(exp, args, dcfg, dataset, tokenizer, device, compute_dtype(exp), draft_sd)
+    return Decoding(exp, args, dcfg, dataset, tokenizer, device, compute_dtype(exp), draft_sd,
+                    mesh, batch_size)
+
+
+def distributed_setup(parser: argparse.ArgumentParser, args):
+    """Join the process group of a multi-process launch and check
+    ``--model_parallel`` against it; on the dense path it forces, switch
+    the flash and W8A8 flags off. Returns (this rank's device, world size,
+    model-parallel size)."""
+    from .._device import resolve_device
+    from ..parallel.mesh import init_distributed, local_device
+
+    device = resolve_device(args.device)
+    world = init_distributed(device=device)
+    device = local_device(device)
+    tp = max(1, args.model_parallel)
+    if tp > 1:
+        if world % tp:
+            parser.error(f"--model_parallel {tp} must divide {world} devices")
+        # TP serving runs the dense path; the kernels of the quantized
+        # serving knobs run on each data rank's rows
+        if args.use_flash or args.int8_weights or args.cross_kv_bits == 4:
+            logging.info(
+                "--model_parallel: forcing the dense XLA path "
+                "(flash/quantized-serving knobs are single-chip/DP only)"
+            )
+        args.use_flash = False
+        args.int8_weights = False
+    if world == 1 and device.type == "cuda" and torch.cuda.device_count() > 1:
+        logging.info(
+            "one process: serving on one of %d GPUs; launch with python -m "
+            "torch.distributed.run --nproc_per_node %d to use all of them",
+            torch.cuda.device_count(), torch.cuda.device_count(),
+        )
+    return device, world, tp
+
+
+def make_decode_mesh(args, world: int, tp: int):
+    """The ``(data, model)`` mesh of ``--data_parallel`` / ``--model_parallel``
+    over the world, or None, and the batch size rounded up to a multiple of
+    the data axis."""
+    batch_size = args.batch_size
+    if not (tp > 1 or (args.data_parallel and world > 1)):
+        return None, batch_size
+    from ..parallel.mesh import make_mesh
+
+    n = world // tp if args.data_parallel else 1
+    mesh = make_mesh(n, tp)
+    if batch_size % n:
+        batch_size = ((batch_size + n - 1) // n) * n
+        logging.info("rounded batch_size %d -> %d (multiple of %d data shards)",
+                     args.batch_size, batch_size, n)
+    logging.info("sharded decode over %d devices (data=%d, model=%d)", n * tp, n, tp)
+    return mesh, batch_size
 
 
 def main(argv=None) -> int:
@@ -364,6 +446,7 @@ def main(argv=None) -> int:
         level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s: %(message)s",
     )
     from ..decode.pipeline import decode_dataset
+    from ..parallel.mesh import rank
 
     d = prepare(argv)
     logging.info("decoding %d utterances on %s", len(d.dataset), d.device)
@@ -378,15 +461,16 @@ def main(argv=None) -> int:
 
         result = decode_dataset_long(
             encoder, decoder, d.dataset, d.tokenizer, d.dcfg,
-            chunk_seconds=d.args.chunk_seconds, output_dir=d.args.output_dir,
+            chunk_seconds=d.args.chunk_seconds,
+            output_dir=d.args.output_dir if rank() == 0 else None,
             window_batch=d.args.batch_size, device=d.device,
         )
     else:
         result = decode_dataset(
             encoder, decoder, d.dataset, d.tokenizer, d.dcfg,
-            batch_size=d.args.batch_size, output_dir=d.args.output_dir,
+            batch_size=d.batch_size, output_dir=d.args.output_dir,
             enc_chunk=d.args.enc_chunk, device=d.device, draft=d.draft(decoder),
-            ctc_lo=ctc_lo,
+            ctc_lo=ctc_lo, mesh=d.mesh,
         )
     logging.info(
         "decoded %d utts in %.1fs (RTF %.1fx): %s",

@@ -17,20 +17,33 @@ self-draft or, with ``--draft_path``, a distilled draft (``cli.distill``);
 ``--int8_weights true`` serves the token steps with W8A8 step weights.
 ``build_engine(args)`` builds the ``TranscriptionEngine`` without serving,
 so a caller can put ``serve.server.make_server`` over it in its own thread.
+
+Several GPUs: ``python -m torch.distributed.run --nproc_per_node N -m
+robustsq_whisper_torch.cli.serve ...`` with ``--data_parallel`` /
+``--model_parallel`` as in ``cli.decode``: rank 0 serves HTTP, and every
+batch it runs, the other ranks run with it (``TranscriptionEngine.follow``).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 
-from .decode import UNSUPPORTED, check_supported, str2bool
+from .decode import distributed_setup, make_decode_mesh, str2bool
 
-SERVE_UNSUPPORTED = UNSUPPORTED + (
+# flags of paths the port does not have: (flag, is it set?, why)
+SERVE_UNSUPPORTED = (
     ("--compile_cache", lambda a: bool(a.compile_cache),
      "a persistent XLA compilation cache has no counterpart here (the "
      "kernels are built once into robustsq_whisper_torch/_build)"),
 )
+
+
+def check_supported(parser: argparse.ArgumentParser, args) -> None:
+    for flag, is_set, why in SERVE_UNSUPPORTED:
+        if is_set(args):
+            parser.error(f"{flag}: {why}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,8 +81,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--draft_path", default=None)
     p.add_argument("--enc_chunk", type=int, default=0)
     p.add_argument("--data_parallel", type=str2bool, default=True,
-                   help="a no-op on one device")
-    p.add_argument("--model_parallel", type=int, default=1)
+                   help="split each batch over the ranks of a multi-process launch "
+                   "(a no-op on one device)")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="tensor-parallel group size (must divide the world size)")
     p.add_argument("--warmup", type=str2bool, default=True,
                    help="run one batch (building the kernels) before serving")
     p.add_argument("--compile_cache", default=None)
@@ -85,11 +100,27 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
+    """The flags, after joining the process group of a multi-process
+    launch (``args.device`` becomes this rank's, ``args.world`` the world
+    size)."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    check_supported(parser, args, SERVE_UNSUPPORTED)
-    if args.draft_path and max(0, args.speculative_gamma) == 0:
+    check_supported(parser, args)
+    spec = max(0, args.speculative_gamma)
+    if args.draft_path and not spec:
         parser.error("--draft_path requires --speculative_gamma > 0")
+    if spec and args.model_parallel > 1:
+        parser.error(
+            "--speculative_gamma is incompatible with --model_parallel: "
+            "the ragged verify path is single-chip/DP only"
+        )
+    device, args.world, _ = distributed_setup(parser, args)
+    args.device = str(device)
+    if args.draft_path and args.data_parallel and args.world > 1:
+        logging.warning(
+            "--draft_path serving is single-device; dropping --data_parallel"
+        )
+        args.data_parallel = False
     return args
 
 
@@ -106,7 +137,12 @@ def build_engine(args: argparse.Namespace):
     device = resolve_device(args.device)
     exp = load_exp(args)
     draft_sd = read_draft(args) if args.draft_path else None
+    tp = max(1, args.model_parallel)
     dcfg = decode_config(exp, args, quantize_cross_kv=args.quantize_cross_kv)
+    if tp > 1:  # the dense path (cli.decode's distributed_setup)
+        dcfg = dataclasses.replace(
+            dcfg, quantize_cross_kv=False, quantize_weights=False, prefill_quantized=False,
+        )
     if dcfg.speculative_gamma and dcfg.beam_size > 1:
         raise ValueError(
             "--speculative_gamma serves greedy only: the config's decode "
@@ -117,21 +153,23 @@ def build_engine(args: argparse.Namespace):
         exp.resolved_dims(), exp.ts, exp.model, serving_weights(exp, args, dtype), dtype,
         device,
         cross_kv_bits=args.cross_kv_bits, self_kv_bits=args.self_kv_bits,
-        # speculative decode needs the 5-D cache's per-row writes
-        flat_self_cache=not dcfg.speculative_gamma,
+        # speculative decode needs the 5-D cache's per-row writes, and
+        # tensor parallelism the 5-D cache's local heads
+        flat_self_cache=not dcfg.speculative_gamma and tp == 1,
     )
     draft = None
     if draft_sd is not None:  # built like the target, in the compute dtype
         from ..train.distill import build_draft
 
         draft = build_draft(decoder, draft_sd, dtype)
+    mesh, batch_size = make_decode_mesh(args, getattr(args, "world", 1), tp)
     engine = TranscriptionEngine(
         encoder, decoder, load_tokenizer(args.tokenizer_assets), dcfg,
         EngineConfig(
-            batch_size=args.batch_size, speech_seconds=exp.speech_seconds,
+            batch_size=batch_size, speech_seconds=exp.speech_seconds,
             enroll_seconds=exp.enroll_seconds, enc_chunk=args.enc_chunk,
         ),
-        draft=draft, device=device,
+        mesh=mesh, draft=draft, device=device,
     )
     return engine, {"config": args.config, "beam_size": dcfg.beam_size}
 
@@ -140,10 +178,14 @@ def main(argv=None) -> None:
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s: %(message)s",
     )
+    from ..parallel.mesh import rank
     from ..serve.server import make_server
 
     args = parse_args(argv)
     engine, info = build_engine(args)
+    if rank() != 0:  # runs rank 0's batches until it stops
+        engine.follow()
+        return
     if args.warmup:
         logging.info("warmup ...")
         logging.info("warmup done in %.1fs", engine.warmup())
@@ -163,6 +205,7 @@ def main(argv=None) -> None:
     finally:
         batcher.close()
         server.server_close()
+        engine.close()
 
 
 if __name__ == "__main__":

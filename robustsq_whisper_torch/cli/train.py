@@ -15,8 +15,14 @@ the port's format (``train/checkpoint.py``), the n-best average to its
 resumes from the latest checkpoint there. ``--enroll_type embedding``
 trains the embedding-enrollment model on the stage-103
 ``{enroll_prefix}.scp`` (``--enroll_prefix``, default ``resnet``) of each
-data dir. Paths the port does not have yet (meshes, FSDP) stop with a
-message naming their ROADMAP item.
+data dir.
+
+Several GPUs: ``python -m torch.distributed.run --nproc_per_node N -m
+robustsq_whisper_torch.cli.train ...`` trains on a ``(--n_data, --n_model)``
+mesh (default: every rank on the data axis), with ``--fsdp true`` (or
+``train_conf.fsdp``) sharding the parameters' and optimizer's storage over
+the data axis (``train/step.py``). As the JAX CLI builds a mesh only with
+more than one device, one process ignores the three flags (it logs so).
 
 ``build_model`` is shared with ``cli.decode`` and ``cli.serve``: the
 experiment's ``TSASRModel`` with seeded random weights and, with
@@ -38,17 +44,6 @@ from .._device import resolve_device
 from ..init import init_params
 from ..models import TSASRModel
 from ..utils.config import ExperimentConfig
-
-# flags of paths the port does not have yet: (flag, is it set?, ROADMAP item)
-UNSUPPORTED = (
-    ("--n_data", lambda a: (a.n_data or 1) > 1,
-     "data-parallel training is ROADMAP A15 (multi-GPU)"),
-    ("--n_model", lambda a: a.n_model > 1,
-     "tensor-parallel training is ROADMAP A15 (multi-GPU)"),
-    ("--fsdp", lambda a: a.fsdp is not None and a.fsdp,
-     "sharded (FSDP) training is ROADMAP A15 (multi-GPU)"),
-)
-
 
 def compute_dtype(exp: ExperimentConfig) -> torch.dtype:
     return torch.bfloat16 if exp.compute_dtype == "bfloat16" else torch.float32
@@ -126,9 +121,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (the hand-written kernels) or cpu (their plain PyTorch "
                    "versions)")
-    p.add_argument("--n_data", type=int, default=None, help="a no-op at 1")
-    p.add_argument("--n_model", type=int, default=1, help="a no-op at 1")
-    p.add_argument("--fsdp", type=str2bool, default=None, help="a no-op when false")
+    p.add_argument("--n_data", type=int, default=None,
+                   help="data-parallel mesh size (default: every rank)")
+    p.add_argument("--n_model", type=int, default=1, help="tensor-parallel mesh size")
+    p.add_argument("--fsdp", type=str2bool, default=None,
+                   help="shard parameter and optimizer storage over the data axis "
+                   "(ZeRO-3); overrides the config's train_conf.fsdp")
     p.add_argument("--num_epochs", type=int, default=None)
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--enroll_type", default=None, choices=["audio", "embedding"],
@@ -154,15 +152,16 @@ def main(argv=None, metrics_hook=None) -> int:
         level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s: %(message)s",
     )
     from ..data.dataset import KaldiTSDataset
+    from ..parallel.mesh import init_distributed, local_device, make_mesh
     from ..tokenizer.whisper_tokenizer import load_tokenizer
     from ..train.loop import LoopConfig, run_training
     from ..utils.config import load_experiment
-    from .decode import check_supported
 
     parser = build_parser()
     args = parser.parse_args(argv)
-    check_supported(parser, args, UNSUPPORTED)
     dev = resolve_device(args.device)
+    world = init_distributed(device=dev)
+    dev = local_device(dev)
     exp = load_experiment(args.config)
     if args.num_epochs is not None:
         exp.num_epochs = args.num_epochs
@@ -170,10 +169,20 @@ def main(argv=None, metrics_hook=None) -> int:
         exp.batch_size = args.batch_size
     if args.enroll_type is not None:
         exp.ts = dataclasses.replace(exp.ts, enroll_type=args.enroll_type)
-    if exp.train.fsdp:
-        parser.error("train_conf.fsdp: sharded (FSDP) training is ROADMAP A15 (multi-GPU)")
-    if dev.type == "cuda" and torch.cuda.device_count() > 1:
-        logging.info("training on one device (multi-GPU is ROADMAP A15)")
+    if args.fsdp is not None:
+        exp.train = dataclasses.replace(exp.train, fsdp=bool(args.fsdp))
+    mesh = None
+    if world > 1:
+        mesh = make_mesh(args.n_data, args.n_model)
+        logging.info("mesh: data=%d, model=%d", mesh["data"].size(), mesh["model"].size())
+    elif (args.n_data or 1) > 1 or args.n_model > 1 or exp.train.fsdp:
+        logging.info("one device: --n_data, --n_model and fsdp make no mesh")
+    if world == 1 and dev.type == "cuda" and torch.cuda.device_count() > 1:
+        logging.info(
+            "one process: training on one of %d GPUs; launch with python -m "
+            "torch.distributed.run --nproc_per_node %d to use all of them",
+            torch.cuda.device_count(), torch.cuda.device_count(),
+        )
 
     tokenizer = load_tokenizer(args.tokenizer_assets)
     ds_kwargs = dict(
@@ -216,6 +225,7 @@ def main(argv=None, metrics_hook=None) -> int:
         model, dataset, exp.train, lcfg,
         generator=torch.Generator(dev).manual_seed(args.seed),
         metrics_hook=metrics_hook, valid_dataset=valid_dataset, device=dev, seed=args.seed,
+        mesh=mesh,
     )
     logging.info("training done at step %d", state.step)
     return 0

@@ -17,8 +17,15 @@ CTC head; ``run`` then takes the encoder lengths too). ``decode_dataset``
 runs a ``KaldiTSDataset`` through them batch by batch (with
 ``with_timestamps`` it also writes the ``segments`` file) and
 ``score_and_write`` writes the ESPnet-style ``text`` (hypotheses) and
-``score.txt``. Mesh serving (data or tensor parallel) is a later slice
-and raises ``NotImplementedError``.
+``score.txt``.
+
+On a mesh (``parallel/mesh.py``, one process per GPU) the conditions are
+JAX's: a model axis larger than 1 serves tensor-parallel, else a data axis
+larger than 1 data-parallel (``decode/sharded.py``); joint CTC and a
+separate draft refuse a mesh, and the embedding encoder serves
+data-parallel only. Every rank reads the same batch and keeps its rows;
+the tokens of the whole batch come back to every rank, and rank 0 writes
+the files.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_size, rank
 from ..audio.frontend import log_mel_spectrogram, pcm16_to_float, to_pcm16
 from ..data import kaldi_io
 from ..models.ts_decoder import TSDecoder
@@ -113,6 +121,7 @@ def build_decode_fns(
     device="cuda",
     draft: Optional[TSDecoder] = None,
     ctc_lo: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    enc_chunk: int = 0,
 ):
     """``(encode, run)``: ``encode`` returns ``(memory, spk_prompt)``, from
     ``(mel, flens, emel, elens)`` for the Qformer encoder and from ``(mel,
@@ -121,7 +130,11 @@ def build_decode_fns(
     expects; ``run(memory, spk_prompt)`` returns (tokens, scores[, stats]);
     the joint decoder's is ``run(memory, spk_prompt, mem_lens)``.
     ``ctc_lo``: the CTC head's (weight, bias), which joint decode needs.
-    Moves the modules to ``device``."""
+    Moves the modules to ``device``. On a ``mesh`` ``encode`` takes the
+    whole batch and returns this rank's rows, ``run`` takes those and
+    returns the whole batch's; ``enc_chunk`` then sub-batches the encoder
+    inside ``encode`` (decode/sharded.py). A tensor-parallel mesh shards
+    the modules in place."""
     if draft is not None and not (
         dcfg.speculative_gamma > 0 and mesh is None and dcfg.ctc_decode_weight == 0
     ):
@@ -129,13 +142,34 @@ def build_decode_fns(
             "a draft decoder requires the single-device speculative path: "
             "speculative_gamma > 0, no mesh, no joint CTC"
         )
-    if mesh is not None:
-        raise NotImplementedError("multi-GPU serving is ROADMAP A15")
     emb = isinstance(encoder, SpkAdapterTSEncoder)
     if emb and decoder.use_spk_prompt:
         raise ValueError("embedding enrollment decodes prompt-free: build the TSDecoder "
                          "with use_spk_prompt=False")
     dev = resolve_device(device)
+    if mesh is not None and dcfg.ctc_decode_weight > 0:
+        raise NotImplementedError(
+            "ctc_decode_weight > 0 decodes on a single device (the "
+            "joint scorer is the parity path, not the serving one); "
+            "drop --data_parallel/--model_parallel"
+        )
+    if mesh is not None and axis_size(mesh, MODEL_AXIS) > 1:
+        if emb:
+            raise NotImplementedError(
+                "tensor-parallel serving of the embedding-enrollment encoder is "
+                "not wired up (the TS flagship path is the Qformer encoder); use "
+                "--model_parallel 1"
+            )
+        from .sharded import build_tp_decoder, build_tp_encoder
+
+        return (build_tp_encoder(encoder, mesh, dev, enc_chunk),
+                build_tp_decoder(decoder, dcfg, mesh, dev))
+    if mesh is not None and axis_size(mesh, DATA_AXIS) > 1:
+        from .sharded import build_sharded_decoder, build_sharded_encoder
+
+        run = build_sharded_decoder(decoder, dcfg, mesh, dev,
+                                    return_stats=dcfg.speculative_gamma > 0)
+        return build_sharded_encoder(encoder, mesh, dev, enc_chunk), run
     if dcfg.ctc_decode_weight > 0:
         if ctc_lo is None:
             raise ValueError(
@@ -183,9 +217,12 @@ def decode_dataset(
     device="cuda",
     draft: Optional[TSDecoder] = None,
     ctc_lo: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    mesh: Optional[Any] = None,
 ) -> DecodeResult:
     """Decode every utterance of ``dataset`` and score it against its
-    ``text``.
+    ``text``. On a ``mesh`` every rank runs this over the same batches
+    (``batch_size`` and ``enc_chunk`` multiples of the data axis: the
+    chunk is rounded up to one, as in JAX) and rank 0 writes the files.
 
     The loop keeps the JAX package's order: batch i is encoded and decoded,
     then the host detokenizes batch i-1 (the only place tokens move to the
@@ -193,11 +230,23 @@ def decode_dataset(
     ``run`` syncs with the host at every decode step (ROADMAP D5), so the
     device has finished batch i before the host goes on."""
     dev = resolve_device(device)
-    encode, run = build_decode_fns(
-        encoder, decoder, dcfg, device=dev, draft=draft, ctc_lo=ctc_lo
-    )
     if enc_chunk < 0:
         raise ValueError(f"enc_chunk must be >= 0, got {enc_chunk}")
+    n_data = axis_size(mesh, DATA_AXIS)
+    if enc_chunk and mesh is not None:
+        # each encode sub-batch must still divide the mesh data axis
+        rounded = -(-enc_chunk // n_data) * n_data
+        if rounded != enc_chunk:
+            logger.info("rounded enc_chunk %d -> %d (multiple of the %d-way data axis)",
+                        enc_chunk, rounded, n_data)
+            enc_chunk = rounded
+    encode, run = build_decode_fns(
+        encoder, decoder, dcfg, mesh=mesh, device=dev, draft=draft, ctc_lo=ctc_lo,
+        enc_chunk=enc_chunk,
+    )
+    # a sharded encode sub-batches inside (build_decode_fns)
+    sharded = axis_size(mesh, DATA_AXIS) * axis_size(mesh, MODEL_AXIS) > 1
+    outer_chunk = 0 if sharded else enc_chunk
 
     hyps: Dict[str, str] = {}
     refs: Dict[str, str] = {}
@@ -242,7 +291,7 @@ def decode_dataset(
             feats, feats_lens = mel(batch["speech"], batch["speech_lens"])
             enroll = ((torch.from_numpy(batch["enroll_embed"]),) if emb
                       else mel(batch["enroll"], batch["enroll_lens"]))
-            memory, spk_prompt = chunked_encode(encode, (feats, feats_lens, *enroll), enc_chunk)
+            memory, spk_prompt = chunked_encode(encode, (feats, feats_lens, *enroll), outer_chunk)
             if dcfg.ctc_decode_weight > 0:
                 # encoder lengths with the prompt frames, as the encoder's
                 # own: the joint scorer masks the frames beyond each
@@ -279,6 +328,8 @@ def decode_dataset(
             100 * extra["spec_acceptance_rate"], extra["spec_tokens_per_chunk"],
             dcfg.speculative_gamma, dcfg.draft_layers,
         )
+    if rank() != 0:
+        output_dir = None
     if segments and output_dir:
         os.makedirs(output_dir, exist_ok=True)
         with open(os.path.join(output_dir, "segments"), "w") as f:

@@ -12,6 +12,10 @@ Same functions as the JAX package's ``losses/asr.py`` (ESPnet semantics):
   JAX package's ``optax.ctc_loss`` is plain XLA). An alignment that cannot
   exist (more labels than frames) gives ``inf`` here, where optax returns a
   large finite number.
+
+Under data parallelism the token counts that divide are the whole batch's
+(``parallel.mesh.global_count``): the mean of the ranks' values is then the
+whole batch's. The batch means need nothing: every rank holds as many rows.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import global_count
 
 IGNORE_ID = -1
 
@@ -69,7 +75,7 @@ def label_smoothing_loss(
     on_logp = logp.gather(-1, torch.where(mask, targets, 0)[..., None])[..., 0]
     cross = on * on_logp + off * (logp.sum(-1) - on_logp)
     kl = torch.where(mask, entropy - cross, 0.0)
-    denom = mask.sum().float() if normalize_length else float(logits.shape[0])
+    denom = global_count(mask.sum().float()) if normalize_length else float(logits.shape[0])
     return kl.sum() / denom
 
 
@@ -78,7 +84,7 @@ def token_accuracy(
 ) -> torch.Tensor:
     mask = targets != ignore_id
     correct = mask & (logits.argmax(-1) == targets)
-    return correct.sum() / mask.sum().clamp(min=1)
+    return correct.sum() / global_count(mask.sum()).clamp(min=1)
 
 
 class CTCHead(nn.Module):

@@ -17,6 +17,14 @@ Same functions as the JAX package's ``losses/speaker.py``:
   as host floats (the port has no trace to carry them as tensors).
 
 Everything runs in f32 whatever the compute dtype of the encoder.
+
+Under data parallelism (``parallel.mesh.use_mesh``) each rank holds its
+rows of the batch, yet Arc-InfoNCE draws its negatives from the whole
+batch: every rank draws the whole batch's index matrix from the same
+generator, keeps its rows' columns, and reads the negatives from the
+pooled enrollments of every rank (all-gathered, the gradient
+reduce-scattered back). A tensor-parallel AAM classifier (``tp``) holds
+its rows of speakers and gathers the cosines.
 """
 
 from __future__ import annotations
@@ -25,6 +33,9 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from ..parallel import collectives
+from ..parallel.mesh import data_group, gather_batch
 
 _ACOS_EPS = 1e-7  # the clamp before arccos
 
@@ -89,8 +100,17 @@ def arc_infonce_loss(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, accuracy)."""
     pooled_prompt = l2_normalize(spk_prompt.float().mean(1))
-    neg_idx = sample_negatives(neg_logits, num_negatives, generator)  # (K, b)
-    targets = torch.cat([pooled_enroll[None], pooled_enroll[neg_idx]], dim=0)
+    group = data_group()
+    if group is None:
+        neg_idx = sample_negatives(neg_logits, num_negatives, generator)  # (K, b)
+        negatives = pooled_enroll[neg_idx]
+    else:  # the whole batch's draw and rows; this rank's columns
+        b = pooled_enroll.shape[0]
+        r = torch.distributed.get_rank(group)
+        neg_idx = sample_negatives(gather_batch(neg_logits), num_negatives, generator)
+        everyone = collectives.gather_sum(pooled_enroll, 0, group)
+        negatives = everyone[neg_idx[:, r * b:(r + 1) * b]]
+    targets = torch.cat([pooled_enroll[None], negatives], dim=0)
     cos = torch.einsum("bd,kbd->kb", pooled_prompt, l2_normalize(targets))
     theta = torch.arccos(torch.clamp(cos, -1.0 + _ACOS_EPS, 1.0 - _ACOS_EPS))
     theta = torch.cat([theta[:1] + margin, theta[1:]], dim=0)  # positive only
@@ -109,13 +129,19 @@ class AAMSoftmaxHead(nn.Module):
         self.num_speakers = num_speakers
         self.temperature = temperature
         self.classifier = nn.Parameter(torch.zeros(num_speakers, input_dim))
+        self.tp = None  # the Split of a tensor-parallel classifier
 
     def forward(
         self, pooled: torch.Tensor, labels: torch.Tensor, margin: float = 0.25
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         feats = l2_normalize(pooled.float())
         weights = l2_normalize(self.classifier.float())
-        cos = torch.clamp(feats @ weights.t(), -1.0 + _ACOS_EPS, 1.0 - _ACOS_EPS)
+        if self.tp is None:
+            cos = feats @ weights.t()
+        else:  # this rank's speakers, then all of them
+            cos = collectives.copy_to(feats, self.tp.group) @ weights.t()
+            cos = collectives.gather_from(cos, -1, self.tp.group)
+        cos = torch.clamp(cos, -1.0 + _ACOS_EPS, 1.0 - _ACOS_EPS)
         one_hot = torch.nn.functional.one_hot(labels.long(), self.num_speakers).float()
         logits = torch.cos(torch.arccos(cos) + one_hot * margin) / self.temperature
         loss = -(one_hot * torch.log_softmax(logits, dim=-1)).sum(-1).mean()

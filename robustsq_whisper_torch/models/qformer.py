@@ -55,6 +55,9 @@ class BertSelfAttentionBlock(nn.Module):
     def __init__(self, cfg: QformerConfig, kv_width: int):
         super().__init__()
         self.cfg = cfg
+        # local heads under tensor parallelism (parallel/shard.py)
+        self.n_head = cfg.num_attention_heads
+        self.head_dim = cfg.hidden_size // cfg.num_attention_heads
         self.query = Linear(cfg.hidden_size, cfg.hidden_size)
         self.key = Linear(kv_width, cfg.hidden_size)
         self.value = Linear(kv_width, cfg.hidden_size)
@@ -63,14 +66,15 @@ class BertSelfAttentionBlock(nn.Module):
 
     def forward(self, x, kv_src, mask: Optional[torch.Tensor], train=False, generator=None):
         cfg = self.cfg
-        split = lambda t: t.reshape(t.shape[0], t.shape[1], cfg.num_attention_heads, -1)
+        split = lambda t: t.reshape(t.shape[0], t.shape[1], -1, self.head_dim)
         o = dot_product_attention(
             split(self.query(x)), split(self.key(kv_src)),
             split(self.value(kv_src)), mask=mask,
             dropout_rate=cfg.attention_probs_dropout_prob if train else 0.0,
             generator=generator,
+            heads_group=None if self.query.tp is None else self.query.tp.group,
         )
-        o = self.out(o.reshape(x.shape))
+        o = self.out(o.reshape(x.shape[0], x.shape[1], -1))
         o = dropout(o, cfg.hidden_dropout_prob if train else 0.0, generator)
         return self.ln(o + x).to(o.dtype)
 

@@ -21,7 +21,11 @@ Mirrors the JAX package's ``models/ts_encoder.py``:
   ``remat`` recomputes blocks 1 and up in the backward, which changes no
   value.
 
-Sequence parallelism is ROADMAP A15.
+``sequence_parallel`` runs the Qformer encoder's Whisper blocks with the
+residual stream split along the sequence over the model group when the
+model is tensor-parallel and the length (prompt and frames: 16 + 1500 at
+full width) divides (``whisper.modules.AudioEncoder.run_blocks``); the
+embedding encoder calls its blocks itself and runs them whole.
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ class TSEncoderConfig:
     ``enroll_type`` picks the encoder (``audio``: ``QFormerTSEncoder``,
     ``embedding``: ``SpkAdapterTSEncoder``); the five knobs after it are
     the embedding encoder's, the Qformer ones the audio encoder's.
-    ``sequence_parallel=True`` (ROADMAP A15) raises."""
+    ``sequence_parallel``: the blocks' residual stream split along the
+    sequence under tensor parallelism (``AudioEncoder.run_blocks``)."""
 
     enroll_type: str = "audio"
     enroll_size: int = 256

@@ -46,8 +46,18 @@ self-attention then takes ``attend`` (the row-major flash route) rather
 than the transposed one, as the JAX package's does. Cross-attention K/V,
 prefill and training stay dense.
 
-Sequence parallelism is not in this port (``NotImplementedError`` naming
-ROADMAP A15).
+Multi-GPU (``parallel/shard.py``): a ``Linear`` with ``tp`` set is
+column-parallel (``tp.dim`` 0: its input enters the tensor-parallel region
+through ``copy_to``) or row-parallel (``tp.dim`` 1: its partial output is
+all-reduced, then the bias added); attention keeps ``n_head`` local heads;
+a ``TextDecoder`` with ``vocab_tp`` looks tokens up in its vocabulary rows
+(the others masked, then all-reduced) and all-gathers its logits. With
+``sequence_parallel`` and a model group whose size divides the length, the
+blocks of ``AudioEncoder.run_blocks`` and ``TextDecoder.forward_embedded``
+hold the residual stream as (b, T / n_model, C) on each rank: a block
+all-gathers its layer norms' outputs along the sequence before the column
+Linears, its row Linears reduce-scatter instead of all-reducing, and its
+layer norms and row biases reduce their gradients over the group.
 """
 
 from __future__ import annotations
@@ -74,6 +84,8 @@ from ...ops.self_attention import (
     deferred_self_attention,
     quantize_flat_kv,
 )
+from ...parallel import collectives
+from ...parallel.mesh import gather_seq, sequence_parallel, shard_seq, sp_applies, sp_group
 from .config import WhisperDims, sinusoids
 
 Cache = Tuple[torch.Tensor, ...]
@@ -90,10 +102,11 @@ class LayerNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(
-            x.float(), self.weight.shape, self.weight.float(),
-            self.bias.float(), self.eps,
-        )
+        w, b = self.weight, self.bias
+        sp = sp_group()
+        if sp is not None:  # over this rank's positions: a partial gradient
+            w, b = collectives.copy_to(w, sp), collectives.copy_to(b, sp)
+        return F.layer_norm(x.float(), w.shape, w.float(), b.float(), self.eps)
 
 
 class Linear(nn.Linear):
@@ -103,19 +116,38 @@ class Linear(nn.Linear):
     ``lora``: None, or LoRA factors ``(a (in, r), b (r, out), scale)``
     attached by ``train.lora.attach_lora``; the layer then computes with
     ``weight + scale * (a @ b)^T``, the JAX package's ``merge_lora`` on a
-    (in, out) kernel. They are not parameters of the module."""
+    (in, out) kernel. They are not parameters of the module.
+
+    ``tp``: None, or the ``parallel.shard.Split`` of a tensor-parallel
+    weight (the module docstring); the LoRA delta is then sliced like the
+    weight."""
 
     lora = None
+    tp = None
 
     def effective_weight(self) -> torch.Tensor:
         if self.lora is None:
             return self.weight
         a, b, scale = self.lora
         delta = (a @ b).t() * scale
+        if self.tp is not None:
+            delta = self.tp.take(delta)
         return (self.weight.float() + delta).to(self.weight.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.effective_weight(), self.bias)
+        x = x.to(self.weight.dtype)
+        tp = self.tp
+        if tp is None:
+            return F.linear(x, self.effective_weight(), self.bias)
+        if tp.dim == 0:  # column-parallel
+            return F.linear(collectives.copy_to(x, tp.group), self.effective_weight(), self.bias)
+        y = F.linear(x, self.effective_weight())  # row-parallel: a partial sum
+        sp = sp_group()
+        if sp is None:
+            y = collectives.reduce_from(y, tp.group)
+            return y if self.bias is None else y + self.bias
+        y = collectives.reduce_scatter(y, 1, sp)
+        return y if self.bias is None else y + collectives.copy_to(self.bias, sp)
 
 
 def gelu(x: torch.Tensor, approx: bool) -> torch.Tensor:
@@ -226,6 +258,7 @@ class MultiHeadAttention(nn.Module):
     ):
         super().__init__()
         self.n_state, self.n_head = n_state, n_head
+        self.head_dim = n_state // n_head
         self.use_flash, self.flash_tmaj, self.kv_bits = use_flash, flash_tmaj, kv_bits
         self.query = Linear(n_state, n_state)
         self.key = Linear(n_state, n_state, bias=False)
@@ -238,10 +271,10 @@ class MultiHeadAttention(nn.Module):
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         b, t, _ = x.shape
-        return x.reshape(b, t, self.n_head, self.n_state // self.n_head)
+        return x.reshape(b, t, -1, self.head_dim)
 
     def _merge(self, x: torch.Tensor) -> torch.Tensor:
-        return x.reshape(x.shape[0], x.shape[1], self.n_state)
+        return x.reshape(x.shape[0], x.shape[1], -1)
 
     def kv(self, src: torch.Tensor):
         """Keys and values of ``src``: 2x (batch, len, heads, head_dim)."""
@@ -356,7 +389,7 @@ class MultiHeadAttention(nn.Module):
     ) -> torch.Tensor:
         if (
             self.flash_tmaj and self.use_flash and xa is None
-            and mask is None and x.shape[1] >= 256
+            and mask is None and x.shape[1] >= 256 and self.query.tp is None
         ):
             return self.self_attend_tmaj(x)
         k, v = self.kv(x if xa is None else xa)
@@ -399,22 +432,27 @@ class ResidualAttentionBlock(nn.Module):
         xa: Optional[torch.Tensor] = None,
         mask: Optional[torch.Tensor] = None,
         qw: Optional[dict] = None,
+        sp=None,
     ) -> torch.Tensor:
         """Full-sequence block. ``qw`` (one layer of
         ``quantize_encoder_weights``) runs the self-attention projections
         and the MLP W8A8, the attention itself through ``attend``;
-        cross-attention stays dense."""
-        h = self._cast(self.attn_ln(x))
-        if qw is None:
-            x = x + self.attn(h, mask=mask)
-        else:
-            a = qw["attn"]
-            k = self.attn._split(_proj(self.attn.key, h, a["key"]))
-            v = self.attn._split(_proj(self.attn.value, h, a["value"]))
-            x = x + self.attn.attend(h, k, v, mask=mask, qw=a)
-        if self.cross_attention:
-            x = x + self.cross_attn(self._cast(self.cross_attn_ln(x)), xa=xa)
-        return x + self._mlp(self._cast(self.mlp_ln(x)), qw)
+        cross-attention stays dense. ``sp``: the model group of a
+        sequence-parallel block, whose ``x`` is this rank's chunk of the
+        sequence (the module docstring)."""
+        with sequence_parallel(sp):
+            full = (lambda t: gather_seq(t, sp)) if sp is not None else (lambda t: t)
+            h = full(self._cast(self.attn_ln(x)))
+            if qw is None:
+                x = x + self.attn(h, mask=mask)
+            else:
+                a = qw["attn"]
+                k = self.attn._split(_proj(self.attn.key, h, a["key"]))
+                v = self.attn._split(_proj(self.attn.value, h, a["value"]))
+                x = x + self.attn.attend(h, k, v, mask=mask, qw=a)
+            if self.cross_attention:
+                x = x + self.cross_attn(full(self._cast(self.cross_attn_ln(x))), xa=xa)
+            return x + self._mlp(full(self._cast(self.mlp_ln(x))), qw)
 
     def _cross(
         self, x: torch.Tensor, cross: CrossKV,
@@ -588,13 +626,6 @@ class ResidualAttentionBlock(nn.Module):
         return x, news
 
 
-def _no_sequence_parallel(sequence_parallel: bool) -> None:
-    if sequence_parallel:
-        raise NotImplementedError(
-            "sequence parallelism needs a model-parallel mesh, ROADMAP A15"
-        )
-
-
 def _run_block(block: nn.Module, remat: bool, *args) -> torch.Tensor:
     """``block(*args)``, recomputed in the backward (non-reentrant
     checkpoint) when ``remat`` is set and gradients are on."""
@@ -613,10 +644,11 @@ class AudioEncoder(nn.Module):
         remat: bool = False, sequence_parallel: bool = False,
     ):
         super().__init__()
-        _no_sequence_parallel(sequence_parallel)
         self.dims = dims
         self.gelu_approx = gelu_approx
         self.remat = remat
+        self.sequence_parallel = sequence_parallel
+        self.tp_group = None  # the model group under tensor parallelism
         d = dims.n_audio_state
         self.conv1 = nn.Conv1d(dims.n_mels, d, 3, padding=1)
         self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1)
@@ -652,12 +684,20 @@ class AudioEncoder(nn.Module):
         """The blocks and ``ln_post``; ``qw`` (``quantize_encoder_weights``)
         runs them W8A8 (inference only)."""
         x = x.to(self.dtype)
+        sp = self._sp_group(x.shape[1])
+        x = shard_seq(x, sp) if sp is not None else x
         for i, block in enumerate(self.blocks):
             if qw is None:
-                x = _run_block(block, self.remat, x)
+                x = _run_block(block, self.remat, x, None, None, None, sp)
             else:
                 x = block(x, qw=qw["layers"][i])
+        x = gather_seq(x, sp) if sp is not None else x
         return self.ln_post(x).to(self.dtype)
+
+    def _sp_group(self, length: int):
+        """The model group when the blocks run sequence-parallel."""
+        ok = self.sequence_parallel and sp_applies(self.tp_group, length)
+        return self.tp_group if ok else None
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         return self.run_blocks(self.conv_stem(mel))
@@ -679,9 +719,11 @@ class TextDecoder(nn.Module):
         sequence_parallel: bool = False,
     ):
         super().__init__()
-        _no_sequence_parallel(sequence_parallel)
         self.dims = dims
         self.remat = remat
+        self.sequence_parallel = sequence_parallel
+        self.tp_group = None  # the model group under tensor parallelism
+        self.vocab_tp = None  # the Split of a vocabulary-parallel embedding
         self.cross_kv_bits = cross_kv_bits
         self.self_kv_bits = self_kv_bits
         self.flat_self_cache = flat_self_cache
@@ -758,7 +800,15 @@ class TextDecoder(nn.Module):
     # ---- embedding / logits ----
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.token_embedding(tokens)
+        tp = self.vocab_tp
+        if tp is None:
+            return self.token_embedding(tokens)
+        w = self.token_embedding.weight  # this rank's rows of the vocabulary
+        local = tokens - tp.rank * w.shape[0]
+        inside = (local >= 0) & (local < w.shape[0])
+        x = F.embedding(torch.where(inside, local, 0), w)
+        x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+        return collectives.reduce_from(x, tp.group)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """Tied-embedding output projection, returned in f32. On the card a
@@ -768,6 +818,14 @@ class TextDecoder(nn.Module):
         gradients on, the operands are rounded to the compute dtype and
         multiplied in f32 (the same sums, through autograd)."""
         x, w = x.to(self.dtype), self.token_embedding.weight
+        tp = self.vocab_tp
+        if tp is not None:  # this rank's vocabulary columns, then all of them
+            x = collectives.copy_to(x, tp.group)
+            return collectives.gather_from(self._logits(x, w), -1, tp.group)
+        return self._logits(x, w)
+
+    @staticmethod
+    def _logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
             return F.linear(x.float(), w.float())
         if x.is_cuda and w.dtype != torch.float32:
@@ -798,8 +856,13 @@ class TextDecoder(nn.Module):
         if mask is None:
             mask = causal_mask(length, device=x.device)
         memory = memory.to(self.dtype)
+        sp = None
+        if self.sequence_parallel and sp_applies(self.tp_group, length):
+            sp = self.tp_group
+            x = shard_seq(x, sp)
         for block in self.blocks:
-            x = _run_block(block, self.remat, x, memory, mask)
+            x = _run_block(block, self.remat, x, memory, mask, None, sp)
+        x = gather_seq(x, sp) if sp is not None else x
         return self.ln(x).to(self.dtype)
 
     def forward(self, tokens: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
@@ -839,6 +902,7 @@ class TextDecoder(nn.Module):
         self.check_self_cache()
         d = self.dims
         hd = d.n_text_state // d.n_text_head
+        heads = self.blocks[0].attn.n_head  # this rank's under tensor parallelism
         dev = self.token_embedding.weight.device
         zeros = lambda shape, dtype=self.dtype: torch.zeros(shape, dtype=dtype, device=dev)
         if layout is None and self._tmin_self:
@@ -863,7 +927,7 @@ class TextDecoder(nn.Module):
                     zeros(shape[:3] + (128,), torch.bfloat16),
                 )
             return zeros(shape), zeros(shape)
-        shape = (d.n_text_layer, batch, max_len, d.n_text_head, hd)
+        shape = (d.n_text_layer, batch, max_len, heads, hd)
         if self.self_kv_bits == 8:
             return (
                 zeros(shape, torch.int8), zeros(shape[:-1], torch.float32),

@@ -20,11 +20,14 @@ def dot_product_attention(
     out_dtype: Optional[torch.dtype] = None,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    heads_group=None,
 ) -> torch.Tensor:
     """Scaled dot-product attention; returns (batch, q_len, heads, head_dim)
     in ``out_dtype`` (default q.dtype). Scores and softmax run in f32.
     ``dropout_rate`` > 0: inverted dropout on the softmax weights (the
-    Qformer's training attention-probs dropout), drawn from ``generator``."""
+    Qformer's training attention-probs dropout), drawn from ``generator``;
+    ``heads_group``: the model group whose ranks hold the other heads (the
+    mask is drawn for every head and this rank keeps its own)."""
     out_dtype = out_dtype or q.dtype
     scale = q.shape[-1] ** -0.5
     # f32 products of the (possibly bf16) operands: the JAX version's
@@ -32,7 +35,8 @@ def dot_product_attention(
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if mask is not None:
         scores = scores + mask.float()
-    weights = dropout(torch.softmax(scores, dim=-1), dropout_rate, generator)
+    weights = dropout(torch.softmax(scores, dim=-1), dropout_rate, generator,
+                      heads=None if heads_group is None else (1, heads_group))
     out = torch.einsum(
         "bhqk,bkhd->bqhd", weights.to(v.dtype).float(), v.float()
     )
@@ -40,14 +44,19 @@ def dot_product_attention(
 
 
 def dropout(
-    x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None,
+    heads=None,
 ) -> torch.Tensor:
     """Inverted dropout: each element kept with probability ``1 - rate`` and
     scaled by ``1 / (1 - rate)``, drawn from ``generator`` (torch's default
-    generator when None); the identity at rate 0."""
+    generator when None); the identity at rate 0. The draw covers the whole
+    batch of a data-parallel step (``parallel.mesh.global_rand``), and
+    with ``heads=(dim, group)`` every head of a tensor-parallel split."""
     if rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    from ..parallel.mesh import global_rand
+
+    keep = global_rand(x.shape, generator, x.device, heads) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 

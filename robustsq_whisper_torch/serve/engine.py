@@ -11,11 +11,23 @@ engine's ``draft_vars``): a distilled one (``train/distill.py``,
 ``cli.serve --draft_path``) or a converted JAX draft. It serves audio
 enrollment (the Qformer encoder), as the JAX engine does; embedding
 enrollment decodes through ``cli.decode``.
+
+On a ``mesh`` (``parallel/mesh.py``; one process per GPU) the engine of
+rank 0 takes the requests; before it runs a staged batch it broadcasts it
+(its shapes, then its tensors) to the other ranks, whose engines wait in
+``follow`` and run the same batch with it: each rank encodes and decodes
+its rows (or its heads, tensor-parallel) and every rank gets the whole
+batch's tokens. ``close`` on rank 0 sends the followers a stop. The
+followers wait for the next batch on a gloo group of their own with no
+practical deadline (``IDLE_TIMEOUT``), so a server may stay idle for as
+long as traffic leaves it; the batch's tensors and the decode's
+collectives keep the process group's timeout.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import threading
 import time
 from typing import Any, List, Optional, Sequence, Tuple
@@ -28,6 +40,10 @@ from ..audio.frontend import log_mel_spectrogram, pcm16_to_float, to_pcm16
 from ..decode.pipeline import build_decode_fns, chunked_encode
 from ..decode.search import DecodeConfig, strip_eot
 from ..models.ts_encoder import QFormerTSEncoder
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_size, world_size
+
+# how long a follower waits for rank 0's next batch
+IDLE_TIMEOUT = datetime.timedelta(days=365)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,9 +82,20 @@ class TranscriptionEngine:
         self.dcfg = dcfg
         self.tokenizer = tokenizer
         self.n_mels = encoder.dims.n_mels
+        self.sharded = axis_size(mesh, DATA_AXIS) * axis_size(mesh, MODEL_AXIS) > 1
+        if self.sharded and cfg.batch_size % axis_size(mesh, DATA_AXIS):
+            raise ValueError(f"batch_size {cfg.batch_size} must be a multiple of the "
+                             f"data-axis size ({axis_size(mesh, DATA_AXIS)})")
+        # a sharded encode sub-batches its own rows
         self.encode, self.run = build_decode_fns(
-            encoder, decoder, dcfg, mesh, device=self.device, draft=draft
+            encoder, decoder, dcfg, mesh, device=self.device, draft=draft,
+            enc_chunk=cfg.enc_chunk if self.sharded else 0,
         )
+        self.followers = world_size() > 1 and mesh is not None
+        if self.followers:  # every rank builds its engine: a collective call
+            import torch.distributed as dist
+
+            self._heads = dist.new_group(backend="gloo", timeout=IDLE_TIMEOUT)
         # compute callers are serialized; staging has its own lock so the
         # next batch can stage while the device runs the current one
         self._lock = threading.Lock()
@@ -131,11 +158,56 @@ class TranscriptionEngine:
         """Encode + decode a ``stage()`` result and detokenize the first
         ``n_items`` rows."""
         with self._lock:
-            memory, spk_prompt = chunked_encode(self.encode, staged, self.cfg.enc_chunk)
-            tokens = self.run(memory, spk_prompt)[0].cpu().numpy()
+            if self.followers:
+                self._broadcast(staged)
+            tokens = self._infer(staged).cpu().numpy()
             self.compiled = True
         rows = strip_eot(tokens[:n_items], self.dcfg.eot)
         return [self.tokenizer.decode(r).strip() for r in rows]
+
+    def _infer(self, staged: Tuple) -> torch.Tensor:
+        chunk = 0 if self.sharded else self.cfg.enc_chunk
+        with torch.inference_mode():
+            memory, spk_prompt = chunked_encode(self.encode, staged, chunk)
+            return self.run(memory, spk_prompt)[0]
+
+    # ---- the other ranks of a mesh ----
+
+    def _broadcast(self, staged: Optional[Tuple]) -> None:
+        """Rank 0: the next batch's shapes and dtypes (None: stop), then its
+        tensors, to every rank."""
+        import torch.distributed as dist
+
+        head = [None if staged is None else [(tuple(t.shape), t.dtype) for t in staged]]
+        dist.broadcast_object_list(head, src=0, group=self._heads)
+        with torch.inference_mode():
+            for t in staged or ():
+                dist.broadcast(t.contiguous(), src=0)
+
+    def follow(self) -> None:
+        """A rank other than 0: run each batch rank 0 broadcasts until it
+        sends the stop. Without a mesh (``--data_parallel false``, or a
+        draft) rank 0 serves alone and this returns at once."""
+        import torch.distributed as dist
+
+        while self.followers:
+            head = [None]
+            dist.broadcast_object_list(head, src=0, group=self._heads)
+            if head[0] is None:
+                return
+            with torch.inference_mode():
+                staged = tuple(torch.empty(shape, dtype=dtype, device=self.device)
+                               for shape, dtype in head[0])
+                for t in staged:
+                    dist.broadcast(t, src=0)
+            self._infer(staged)
+
+    def close(self) -> None:
+        """Rank 0: stop the followers (a no-op without them)."""
+        if self.followers:
+            with self._lock:
+                self._broadcast(None)
+                self.followers = False
 
     def transcribe(
         self, items: Sequence[Tuple[np.ndarray, np.ndarray]]

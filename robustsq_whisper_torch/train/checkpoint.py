@@ -10,6 +10,11 @@ unless ``overwrite``; the retention (``keep``) and ``prune_checkpoints``
 never delete the latest step. Serving reads weights only
 (``restore_weights``, ``restore_serving_variables``).
 
+A state sharded over a mesh (``TrainState.layout``) is saved whole: every
+rank gathers each tensor (``parallel.shard.full_tensor``) and rank 0 writes
+the same payload one device writes. A restore takes each rank's part of the
+whole tensors, so a checkpoint moves between one device and any mesh.
+
 The JAX package's checkpoints are Orbax directories, which need
 tensorstore to read; they are not read here. Its weights come over
 through ``convert.flax_to_state_dict`` (read them with the JAX package,
@@ -25,6 +30,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import rank, world_size
+from ..parallel.shard import full_tensor, local_part
 from .lora import Factors, merge_lora
 from .step import TrainState
 
@@ -56,22 +63,29 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
-def _opt_state(state: TrainState) -> Dict[str, Any]:
-    opt = state.opt
+def _opt_names(state: TrainState) -> List[str]:
+    """What each optimizer tensor belongs to: a parameter's name, or a
+    LoRA factor's ``lora:<weight>:a|b``."""
     names = {id(p): n for n, p in state.model.named_parameters()}
     for n, (a, b) in state.lora.items():
         names[id(a)], names[id(b)] = f"lora:{n}:a", f"lora:{n}:b"
+    return [names[id(p)] for p in state.opt.params]
+
+
+def _opt_state(state: TrainState) -> Dict[str, Any]:
+    opt, layout = state.opt, state.layout
+    names = _opt_names(state)
+    whole = lambda ts: [_host(full_tensor(layout, n, t)) for n, t in zip(names, ts)]
     return {
-        # what each optimizer tensor belongs to: a parameter's name, or a
-        # LoRA factor's ``lora:<weight>:a|b``
-        "names": [names[id(p)] for p in opt.params],
+        "names": names,
         "count": int(opt.count),
         "mini_step": int(opt.mini_step),
         # an f32 parameter is its own master: stored once, under params
-        "masters": [None if m is p else _host(m) for m, p in zip(opt.masters, opt.params)],
-        "mu": [_host(m) for m in opt.mu],
-        "nu": [_host(v) for v in opt.nu],
-        "acc": [_host(a) for a in opt.acc],
+        "masters": [None if m is p else _host(full_tensor(layout, n, m))
+                    for n, m, p in zip(names, opt.masters, opt.params)],
+        "mu": whole(opt.mu),
+        "nu": whole(opt.nu),
+        "acc": whole(opt.acc),
     }
 
 
@@ -86,7 +100,8 @@ def save_checkpoint(
 ) -> str:
     """Write ``state`` as step ``step``; returns the step's directory.
     ``keep`` most recent steps stay (``None``: keep all, the caller prunes,
-    e.g. ``prune_checkpoints`` protecting the n-best steps)."""
+    e.g. ``prune_checkpoints`` protecting the n-best steps). On a mesh
+    every rank calls this and rank 0 writes."""
     ckpt_dir = os.path.abspath(ckpt_dir)
     os.makedirs(ckpt_dir, exist_ok=True)
     if step in all_steps(ckpt_dir) and not overwrite:
@@ -94,10 +109,10 @@ def save_checkpoint(
             f"checkpoint step {step} already exists in {ckpt_dir}; "
             "pass overwrite=True to replace it"
         )
-    model = state.model
+    model, layout = state.model, state.layout
     persistent = set(model.state_dict())
     payload = {
-        "params": {n: _host(p) for n, p in model.named_parameters()},
+        "params": {n: _host(full_tensor(layout, n, p)) for n, p in model.named_parameters()},
         "buffers": {n: _host(b) for n, b in model.named_buffers() if n in persistent},
         "lora": {n: [_host(a), _host(b)] for n, (a, b) in state.lora.items()},
         "opt": _opt_state(state),
@@ -105,7 +120,13 @@ def save_checkpoint(
         "epoch": int(epoch),
         "generator": None if generator is None else generator.get_state(),
     }
-    return write_payload(ckpt_dir, step, payload, keep)
+    if rank() != 0:
+        path = os.path.join(ckpt_dir, str(step))
+    else:
+        path = write_payload(ckpt_dir, step, payload, keep)
+    if world_size() > 1:
+        torch.distributed.barrier()
+    return path
 
 
 def write_payload(
@@ -199,7 +220,8 @@ def restore_checkpoint(
     or LoRA layout), the weights alone are restored and the optimizer keeps
     its fresh moments, as the JAX package does."""
     raw, step = read_payload(ckpt_dir, step)
-    model = state.model
+    model, layout = state.model, state.layout
+    part = lambda n, t: local_part(layout, n, t)
     with torch.no_grad():
         own = dict(model.named_parameters())
         own.update((n, b) for n, b in model.named_buffers() if n in raw["buffers"])
@@ -207,23 +229,27 @@ def restore_checkpoint(
         if missing:
             raise KeyError(f"checkpoint step {step} lacks {sorted(missing)[:3]}")
         for n, t in own.items():
-            t.copy_(raw["params"][n] if n in raw["params"] else raw["buffers"][n])
+            t.copy_(part(n, raw["params"][n]) if n in raw["params"] else raw["buffers"][n])
         for n, (a, b) in state.lora.items():
             a.copy_(raw["lora"][n][0])
             b.copy_(raw["lora"][n][1])
         opt, saved = state.opt, raw["opt"]
+        names = _opt_names(state)
         shapes = [tuple(m.shape) for m in opt.mu]
         if (
             set(raw["lora"]) == set(state.lora)
-            and [tuple(m.shape) for m in saved["mu"]] == shapes
+            and len(saved["mu"]) == len(names)
+            and [tuple(part(n, m).shape) for n, m in zip(names, saved["mu"])] == shapes
             and len(saved["acc"]) == len(opt.acc)
         ):
-            for p, m, sm in zip(opt.params, opt.masters, saved["masters"]):
+            for n, p, m, sm in zip(names, opt.params, opt.masters, saved["masters"]):
                 # an f32 parameter is its own master; others take theirs
                 if m is not p:
-                    m.copy_(sm)
-            for dst, src in zip(opt.mu + opt.nu + opt.acc, saved["mu"] + saved["nu"] + saved["acc"]):
-                dst.copy_(src)
+                    m.copy_(part(n, sm))
+            per_name = names * 3
+            for n, dst, src in zip(per_name, opt.mu + opt.nu + opt.acc,
+                                   saved["mu"] + saved["nu"] + saved["acc"]):
+                dst.copy_(part(n, src))
             opt.count, opt.mini_step = int(saved["count"]), int(saved["mini_step"])
         else:
             logging.warning(

@@ -18,6 +18,12 @@ checkpoints by ``valid.acc`` and decodes from their average
   running mean of the n-best checkpoints, saved under ``{ckpt_dir}/ave``
   (``cli.decode --use_ave`` reads it).
 
+On a mesh (``TrainState.mesh``) the validation pass runs each rank's rows
+of every batch, as a training step does, and its stats are the whole
+batch's; the valid WER decodes over the data axis (``decode_dataset``'s
+mesh) when the model axis is 1, and the whole subset on every rank else,
+from the whole weights every rank gathers (``eval_params``).
+
 What is averaged is what the JAX package averages, its f32 parameters and
 LoRA factors: here each parameter's f32 optimizer master where it has one
 (a trainable parameter held in bf16), else the stored parameter, and the
@@ -38,6 +44,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..decode.pipeline import decode_dataset, serving_modules
+from ..parallel.mesh import MODEL_AXIS, axis_size, local_rows, rank, use_mesh
+from ..parallel.shard import full_tensor
 from ..models.ts_decoder import TSDecoder
 from .checkpoint import read_payload, write_payload
 from .lora import merge_lora
@@ -65,8 +73,10 @@ def to_device(batch: Dict[str, Any], device) -> Tensors:
 
 def eval_params(state: TrainState, tcfg: TrainConfig) -> Tensors:
     """The serving / eval view of the state's parameters: the model's, with
-    the LoRA factors merged (``merge_lora``) in mode ``lora``."""
-    params = {n: p.detach() for n, p in state.model.named_parameters()}
+    the LoRA factors merged (``merge_lora``) in mode ``lora``; whole tensors
+    on a mesh (every rank calls this: it gathers)."""
+    params = {n: full_tensor(state.layout, n, p.detach())
+              for n, p in state.model.named_parameters()}
     if tcfg.mode == "lora" and state.lora:
         lora = {n: (a.detach(), b.detach()) for n, (a, b) in state.lora.items()}
         return merge_lora(params, lora, tcfg.lora)
@@ -86,12 +96,18 @@ def evaluate(
     forward then computes with the merged weights); nothing of it changes.
     ``generator`` draws the contrastive negatives, which the reference
     samples at eval too; pass a fixed one so that epochs compare."""
-    model = state.model
+    from .step import _mean_stats
+
+    model, mesh = state.model, state.mesh
     dev = next(model.parameters()).device
     pending: List[Tuple[int, Tensors]] = []
     for batch in dataset.batches(batch_size, shuffle=False):
         b = len(batch["utt_ids"])
-        _, stats = model(to_device(batch, dev), generator, epoch, train=False)
+        with use_mesh(mesh):
+            _, stats = model(local_rows(to_device(batch, dev), mesh), generator, epoch,
+                             train=False)
+        if state.layout is not None:
+            stats = _mean_stats(stats, state.layout.data_group)
         pending.append((b, stats))
     totals: Dict[str, float] = {}
     n_total = 0
@@ -160,9 +176,10 @@ class ValidWer:
         if self.n_utts > 0:
             sub.utt_ids = dataset.utt_ids[: self.n_utts]
         encoder, decoder = self.modules
+        mesh = state.mesh if axis_size(state.mesh, MODEL_AXIS) == 1 else None
         res = decode_dataset(
             encoder, decoder, sub, dataset.tokenizer, self.dcfg,
-            batch_size=batch_size, device=next(encoder.parameters()).device,
+            batch_size=batch_size, device=next(encoder.parameters()).device, mesh=mesh,
         )
         self.last_hyps = res.hyps
         return {k: float(res.metrics[k]) for k in ("wer", "cer") if k in res.metrics}
@@ -179,7 +196,7 @@ class NBestTracker:
     """Keeps the n best (step, valid acc) checkpoints, persisted as JSON next
     to the checkpoints (the ESPnet ``valid.acc.best`` bookkeeping). The
     file names its metric and mode, as the JAX package's does; a file read
-    back keeps them."""
+    back keeps them. Under several processes only rank 0 writes it."""
 
     def __init__(self, ckpt_dir: str, nbest: int = 5):
         self.ckpt_dir = ckpt_dir
@@ -202,6 +219,8 @@ class NBestTracker:
             self.entries = [NBestEntry(**e) for e in d.get("entries", [])]
 
     def _save(self) -> None:
+        if rank() != 0:
+            return
         os.makedirs(self.ckpt_dir, exist_ok=True)
         with open(self.path, "w") as f:
             json.dump(

@@ -25,7 +25,14 @@ state. ``metrics_hook(step, values)`` receives the JAX package's records
 (the logged means with ``steps_per_sec`` and ``epoch``; ``valid.*`` with
 ``epoch``) and, last, ``seconds.*``: the loop's wall time in training,
 validation, valid WER, checkpoint saves, the restore and the averaging.
-FSDP and meshes are ROADMAP A15.
+
+On a ``(data, model)`` mesh (one process per GPU, every rank running this
+loop over the same shuffled dataset) each step takes its rows of the global
+batch (``train/step.py``); the stats, the validation pass and the valid WER
+are the whole batch's on every rank, so every rank takes the same
+decisions; the checkpoints are gathered and rank 0 writes them, prunes
+them, keeps ``nbest.json`` and writes the average. ``TrainConfig.fsdp``
+shards the parameters' storage over the data axis.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from .._device import resolve_device
+from ..parallel.mesh import DATA_AXIS, axis_size, describe, rank
 from .checkpoint import latest_step, prune_checkpoints, restore_checkpoint, save_checkpoint
 from .eval import NBestTracker, ValidWer, evaluate, to_device, write_averaged_checkpoint
 from .lora import Factors
@@ -81,16 +89,24 @@ def run_training(
     device="cuda",
     seed: int = 0,
     lora: Optional[Factors] = None,
+    mesh=None,
 ) -> TrainState:
     """Train ``model`` (a TSASRModel in its compute dtype) over ``dataset``
     for ``lcfg.num_epochs`` epochs and return the final state.
     ``generator``: the training draws' generator, on ``device`` (default:
     seeded 0); ``seed`` / ``lora``: the LoRA factors' seed or the factors
-    themselves (``create_train_state``)."""
+    themselves (``create_train_state``). ``mesh``: the ``(data, model)``
+    mesh to train on (the model is sharded over it)."""
     dev = resolve_device(device)
+    n_data = axis_size(mesh, DATA_AXIS)
+    if lcfg.batch_size % n_data:
+        raise ValueError(f"batch_size {lcfg.batch_size} must be a multiple of the "
+                         f"data-axis size ({n_data})")
     gen = generator if generator is not None else torch.Generator(dev).manual_seed(0)
-    state = create_train_state(model, tcfg, seed=seed, device=dev, lora=lora)
-    step_fn = make_train_step(model, tcfg, device=dev)
+    state = create_train_state(model, tcfg, seed=seed, device=dev, lora=lora, mesh=mesh)
+    step_fn = make_train_step(model, tcfg, device=dev, mesh=mesh)
+    if mesh is not None:
+        logger.info("training on a mesh (%s, fsdp %s)", describe(mesh), tcfg.fsdp)
     seconds = dict.fromkeys(("train", "valid", "valid_wer", "save", "restore", "average"), 0.0)
     start_epoch = 0
 
@@ -120,7 +136,7 @@ def run_training(
         t0 = time.perf_counter()
         save_checkpoint(lcfg.ckpt_dir, state.step, state, epoch, gen, save_keep,
                         overwrite=overwrite)
-        if prune and tracker is not None:
+        if prune and tracker is not None and rank() == 0:
             prune_checkpoints(lcfg.ckpt_dir, lcfg.keep_ckpts, protected=tracker.steps())
         seconds["save"] += time.perf_counter() - t0
 
@@ -182,13 +198,14 @@ def run_training(
             if tracker is not None and "acc" in vstats:
                 if tracker.update(state.step, epoch, vstats["acc"]):
                     logger.info("epoch %d new best valid.acc=%.4f", epoch, vstats["acc"])
-                prune_checkpoints(lcfg.ckpt_dir, lcfg.keep_ckpts, protected=tracker.steps())
+                if rank() == 0:
+                    prune_checkpoints(lcfg.ckpt_dir, lcfg.keep_ckpts, protected=tracker.steps())
                 since = tracker.epochs_since_best(epoch)
                 if lcfg.patience and since >= lcfg.patience:
                     logger.info("early stop: no valid.acc improvement for %d epochs", since)
                     break
 
-    if tracker is not None and tracker.steps():
+    if tracker is not None and tracker.steps() and rank() == 0:
         t0 = time.perf_counter()
         path = write_averaged_checkpoint(lcfg.ckpt_dir, tracker)
         seconds["average"] = time.perf_counter() - t0

@@ -96,12 +96,17 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 class AdamW:
     """Clip + AdamW over ``params`` (the trainable tensors, updated in
-    place). ``update(grads)`` takes one gradient per parameter."""
+    place). ``update(grads)`` takes one gradient per parameter. ``norm``
+    computes the clipping norm of a list of gradients: ``global_norm``, or
+    over a mesh the norm of the whole tensors from each rank's shards
+    (``train.step``); the update itself runs on whatever part of each
+    tensor this rank holds, its masters and moments of the same shape."""
 
-    def __init__(self, params: Sequence[torch.Tensor], cfg: OptimConfig, accum_grad: int = 1):
+    def __init__(self, params: Sequence[torch.Tensor], cfg: OptimConfig, accum_grad: int = 1,
+                 norm: Callable[[Sequence[torch.Tensor]], torch.Tensor] = global_norm):
         if cfg.moment_dtype not in _MOMENT_DTYPES:
             raise ValueError(f"moment_dtype must be float32|bfloat16, got {cfg.moment_dtype}")
-        self.cfg, self.accum_grad = cfg, accum_grad
+        self.cfg, self.accum_grad, self.norm = cfg, accum_grad, norm
         self.params = list(params)
         self.schedule = make_schedule(cfg)
         # f32 masters of the non-f32 parameters; f32 ones are their own
@@ -144,7 +149,7 @@ class AdamW:
         b1, b2 = cfg.betas
         # clip: (g / norm) * max where norm >= max; dividing by 1 and
         # multiplying by 1 leave g exact otherwise
-        norm = global_norm(grads)
+        norm = self.norm(grads)
         clip = norm >= cfg.clip_norm
         one = torch.ones((), device=norm.device)
         torch._foreach_div_(grads, torch.where(clip, norm, one))

@@ -245,31 +245,155 @@ def test_decode_from_random_init_and_ave(trained, tmp_path):
     assert text(str(ave), "b", "--use_ave", "false") == trained_text
 
 
-@pytest.mark.parametrize(
-    "flag,value,item",
-    [
-        ("--model_parallel", "2", "A15"),
-    ],
-)
-def test_unsupported_flags_stop(flag, value, item, capsys):
-    from robustsq_whisper_torch.cli import decode as pdecode
+def test_model_parallel_must_divide_the_world(capsys):
+    """``--model_parallel 2`` in one process stops with the JAX CLI's
+    divisibility message (an assert there, ``cli/decode.py``), for both
+    CLIs."""
+    import inspect
 
-    argv = ["--config", CONFIG, "--data_dir", "/nonexistent", "--output_dir", "/nonexistent",
-            "--device", "cpu", flag, value]
+    from robustsq_whisper_tpu.cli import decode as jdecode
+    from robustsq_whisper_torch.cli import decode as pdecode
+    from robustsq_whisper_torch.cli import serve as pserve
+
+    assert 'f"--model_parallel {tp} must divide {jax.device_count()} devices"' in (
+        inspect.getsource(jdecode))
     with pytest.raises(SystemExit) as e:
-        pdecode.main(argv)
+        pdecode.main(["--config", CONFIG, "--data_dir", "/nonexistent", "--output_dir",
+                      "/nonexistent", "--device", "cpu", "--model_parallel", "2"])
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert flag in err and "ROADMAP" in err and item in err
+    assert "--model_parallel 2 must divide 1 devices" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        pserve.parse_args(["--config", CONFIG, "--device", "cpu", "--model_parallel", "2"])
+    assert "--model_parallel 2 must divide 1 devices" in capsys.readouterr().err
+
+
+def test_tp_embedding_refusal_keeps_the_jax_message():
+    """Tensor-parallel serving of the embedding-enrollment encoder stops
+    with the JAX pipeline's NotImplementedError, word for word."""
+    import dataclasses
+
+    from robustsq_whisper_tpu.decode import pipeline as jpipe
+    from robustsq_whisper_torch.decode.pipeline import build_decode_fns
+    from robustsq_whisper_torch.decode.search import DecodeConfig
+    from robustsq_whisper_torch.models import SpkAdapterTSEncoder, TSDecoder, TSEncoderConfig
+    from robustsq_whisper_torch.models import WhisperDims
+
+    class Axis:
+        def __init__(self, n):
+            self.n = n
+
+        def size(self):
+            return self.n
+
+    class Mesh:  # two model ranks, one data rank
+        def __getitem__(self, axis):
+            return Axis(2 if axis == "model" else 1)
+
+    dims = WhisperDims(n_audio_state=32, n_audio_head=2, n_audio_layer=1, n_text_state=32,
+                       n_text_head=2, n_text_layer=1, n_vocab=50)
+    enc = SpkAdapterTSEncoder(dims, TSEncoderConfig(enroll_type="embedding", enroll_size=8))
+    with pytest.raises(NotImplementedError) as e:
+        build_decode_fns(enc, TSDecoder(dims, use_spk_prompt=False), DecodeConfig(),
+                         mesh=Mesh(), device="cpu")
+    from robustsq_whisper_tpu.decode.search import DecodeConfig as JDecodeConfig
+    from robustsq_whisper_tpu.models import SpkAdapterTSEncoder as JEnc
+    from robustsq_whisper_tpu.models import TSDecoder as JDec
+    from robustsq_whisper_tpu.models import TSEncoderConfig as JTS
+    from robustsq_whisper_tpu.models import WhisperDims as JDims
+
+    class JMesh:
+        shape = {"data": 1, "model": 2}
+
+    jdims = JDims(**dataclasses.asdict(dims))
+    with pytest.raises(NotImplementedError) as je:
+        jpipe._build_embedding_decode_fns(
+            JEnc.from_config(jdims, JTS(enroll_type="embedding", enroll_size=8)), None,
+            JDec(jdims, use_spk_prompt=False), None, JDecodeConfig(), JMesh())
+    assert str(e.value) == str(je.value)
 
 
 def test_serve_unsupported_flags_stop(capsys):
     from robustsq_whisper_torch.cli import serve as pserve
 
-    for flag, value in (("--compile_cache", "/tmp/x"), ("--model_parallel", "2")):
+    for flag, value in (("--compile_cache", "/tmp/x"),):
         with pytest.raises(SystemExit):
             pserve.parse_args(["--config", CONFIG, flag, value])
         assert flag in capsys.readouterr().err
+
+
+def test_decode_and_serve_on_two_ranks(trained, tmp_path):
+    """Under two gloo ranks (``tests/_torch_dist.py``): ``cli.decode
+    --data_parallel true`` and ``--model_parallel 2`` write the ``text`` and
+    ``score.txt`` (but its rtf) of the JAX CLI's same flags, byte for byte
+    (the JAX CLI over the suite's 8 virtual devices); ``cli.serve``, rank 0
+    serving HTTP and rank 1 following, answers requests with the texts of
+    one process's engine."""
+    from robustsq_whisper_tpu.cli import decode as jdecode
+    from robustsq_whisper_torch.cli import serve as pserve
+    from robustsq_whisper_torch.serve import audio_from_bytes
+
+    from ._torch_dist import launch
+    from .test_torch_serve import _wav, _wav_bytes
+
+    t = trained
+    runs = {"dp": ("--data_parallel", "true"), "tp": ("--model_parallel", "2")}
+    decode = []
+    for name, flags in runs.items():
+        assert jdecode.main(_argv(t, t["jexp"], str(tmp_path / f"j{name}"), *flags)) == 0
+        decode.append(_argv(t, t["pexp"], str(tmp_path / f"p{name}"), "--device", "cpu", *flags))
+    serve = ["--config", t["config"], "--inference_config", BEAM1, "--expdir", t["pexp"],
+             "--tokenizer_assets", RANKS, "--batch_size", "2", "--device", "cpu"]
+    wavs = [(_wav_bytes(_wav(10 + i, 0.2 + 0.1 * i)), _wav_bytes(_wav(30 + i, 0.16)))
+            for i in range(3)]
+    torch.save({"decode": decode, "serve": serve, "requests": wavs}, tmp_path / "inputs.pt")
+    launch("cli", 2, str(tmp_path), timeout=240)
+    for name in runs:
+        jout, pout = str(tmp_path / f"j{name}"), str(tmp_path / f"p{name}")
+        with open(os.path.join(jout, "text")) as f, open(os.path.join(pout, "text")) as g:
+            assert g.read() == f.read(), name
+        js, ps = _scores(jout), _scores(pout)
+        assert ps.pop("rtf") and js.pop("rtf")
+        assert ps == js, name
+    got = torch.load(tmp_path / "out-0.pt", weights_only=False)["texts"]
+    engine, _ = pserve.build_engine(pserve.parse_args(serve))
+    want = [engine.transcribe([(audio_from_bytes(s), audio_from_bytes(e))])[0] for s, e in wavs]
+    assert got == want and any(want)
+
+
+def _serve_on_two_ranks(t, tmp_path, flags=(), **inp):
+    """``cli.serve`` under two gloo ranks (``_torch_dist._cli``) answering
+    two requests; returns rank 0's texts and one process's engine's."""
+    from robustsq_whisper_torch.cli import serve as pserve
+    from robustsq_whisper_torch.serve import audio_from_bytes
+
+    from ._torch_dist import launch
+    from .test_torch_serve import _wav, _wav_bytes
+
+    serve = ["--config", t["config"], "--inference_config", BEAM1, "--expdir", t["pexp"],
+             "--tokenizer_assets", RANKS, "--batch_size", "2", "--device", "cpu", *flags]
+    wavs = [(_wav_bytes(_wav(40 + i, 0.3)), _wav_bytes(_wav(50 + i, 0.16))) for i in range(2)]
+    torch.save({"serve": serve, "requests": wavs, **inp}, tmp_path / "inputs.pt")
+    launch("cli", 2, str(tmp_path), timeout=120)
+    got = torch.load(tmp_path / "out-0.pt", weights_only=False)["texts"]
+    engine, _ = pserve.build_engine(pserve.parse_args(serve))
+    want = [engine.transcribe([(audio_from_bytes(s), audio_from_bytes(e))])[0] for s, e in wavs]
+    return got, want
+
+
+def test_serve_answers_after_an_idle_spell_on_two_ranks(trained, tmp_path):
+    """Two gloo ranks whose collectives time out after 3 s: rank 0 answers
+    a request, stays idle for 5 s, then answers another; the follower's
+    wait for the next batch does not run into the timeout, and both
+    answers are one process's."""
+    got, want = _serve_on_two_ranks(trained, tmp_path, timeout_s=3.0, idle_s=5.0)
+    assert got == want and any(want)
+
+
+def test_serve_without_a_mesh_on_two_ranks(trained, tmp_path):
+    """``--data_parallel false`` under two ranks builds no mesh: rank 0
+    serves alone and rank 1's ``follow`` returns at once."""
+    got, want = _serve_on_two_ranks(trained, tmp_path, ("--data_parallel", "false"))
+    assert got == want and any(want)
 
 
 MEDIUM = os.path.join(REPO, "conf/tswhisper/train_tsasr_whisper_medium_lora_qkvo_r16_.yaml")

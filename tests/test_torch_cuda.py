@@ -876,3 +876,126 @@ def test_quantize_on_the_card_is_the_ieee_division(cuda):
         card = fn(x.to(cuda))
         for a, b in zip(cpu, card):
             assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+def test_data_parallel_decode_on_one_card_over_gloo(cuda, tmp_path):
+    """Two gloo ranks on the one card (NCCL cannot put two ranks of a
+    communicator on one GPU): each decodes its rows of a batch of 4 through
+    ``build_sharded_decoder`` with the kernels, and the all-gathers of the
+    CUDA tokens, scores and counters go over gloo; greedy, beam 3 and
+    speculative equal one process's decode of the whole batch, token for
+    token, scores to 1e-4 (f32)."""
+    from robustsq_whisper_torch.decode.search import DecodeConfig, build_beam_decoder
+    from robustsq_whisper_torch.decode.speculative import build_speculative_decoder
+    from robustsq_whisper_torch.init import init_params
+    from robustsq_whisper_torch.models import TSDecoder, WhisperDims
+
+    from ._torch_dist import launch
+
+    dims = dict(n_mels=80, n_vocab=64, n_audio_ctx=16, n_audio_state=128, n_audio_head=2,
+                n_audio_layer=1, n_text_ctx=64, n_text_state=128, n_text_head=2,
+                n_text_layer=3)
+    base = dict(max_new_tokens=12, eot=2, init_tokens=(1, 4), quantize_cross_kv=True)
+    cases = {"greedy": ({}, base), "beam3": ({}, dict(base, beam_size=3)),
+             "speculative": (dict(flat_self_cache=False),
+                             dict(base, speculative_gamma=3, draft_layers=1))}
+    rng = np.random.default_rng(5)
+    memory = rng.standard_normal((4, 40, 128)).astype(np.float32) * 3
+    prompt = rng.standard_normal((4, 5, 128)).astype(np.float32) * 3
+    sd = init_params(TSDecoder(WhisperDims(**dims), startofprev_token=3, cross_kv_bits=4),
+                     5).state_dict()
+    torch.save({"dims": dims, "sop": 3, "cross_kv_bits": 4, "memory": memory, "prompt": prompt,
+                "decoder": sd, "device": "cuda",
+                "cases": [(n, kw, cfg, (2, 1)) for n, (kw, cfg) in cases.items()]},
+               tmp_path / "inputs.pt")
+    launch("decode", 2, str(tmp_path), timeout=300)
+    outs = [torch.load(tmp_path / f"out-{r}.pt", weights_only=False) for r in range(2)]
+    for name, (kw, cfg_kw) in cases.items():
+        dec = TSDecoder(WhisperDims(**dims), startofprev_token=3, cross_kv_bits=4, **kw)
+        dec.load_state_dict(sd)
+        cfg = DecodeConfig(**cfg_kw)
+        run = (build_speculative_decoder(dec, cfg, cuda, return_stats=True)
+               if cfg.speculative_gamma else build_beam_decoder(dec, cfg, cuda))
+        want = run(torch.from_numpy(memory).to(cuda), torch.from_numpy(prompt).to(cuda))
+        for out in outs:
+            got = out[name]
+            np.testing.assert_array_equal(got[0], want[0].cpu().numpy(), err_msg=name)
+            np.testing.assert_allclose(got[1], want[1].cpu().numpy(), rtol=1e-4, atol=1e-4)
+            if len(want) == 3:
+                for k, v in want[2].items():
+                    np.testing.assert_array_equal(got[2][k], v.cpu().numpy(), err_msg=k)
+
+
+@pytest.mark.cuda
+def test_data_parallel_train_steps_on_one_card_over_gloo(cuda, tmp_path):
+    """Two gloo ranks on the one card take two data-parallel steps, and two
+    fully sharded ones, of a small f32 ``TSASRModel`` on the flash route
+    (the three training kernels run on each rank's 2 rows; SpecAugment and
+    the Qformer dropouts on, drawn for the whole batch) against one
+    process's steps over the batch of 4: the stats to 1e-5 relative, the
+    gradient norm to 1e-4 (the CTC posteriors' sensitivity, as on the CPU),
+    the weights to 1e-5 absolute; each FSDP rank holds half of every
+    sharded tensor and of its moments."""
+    from robustsq_whisper_torch.init import init_params
+    from robustsq_whisper_torch.models import TSASRModel, TSEncoderConfig, TSModelConfig
+    from robustsq_whisper_torch.models import WhisperDims
+    from robustsq_whisper_torch.train import OptimConfig, TrainConfig
+    from robustsq_whisper_torch.train import create_train_state, make_train_step
+
+    from ._torch_dist import launch
+
+    torch.backends.cudnn.allow_tf32 = False
+    dims = dict(n_mels=80, n_vocab=64, n_audio_ctx=256, n_audio_state=128, n_audio_head=2,
+                n_audio_layer=2, n_text_ctx=32, n_text_state=128, n_text_head=2,
+                n_text_layer=2)
+    ts = dict(num_query_tokens=2, num_hidden_layers=1, qformer_hidden_size=64,
+              qformer_heads=2, qformer_intermediate_size=128, use_flash_attention=True)
+    cfg = dict(vocab_size=64, sos=1, eos=2, startofprev=3, num_speakers=8, num_negatives=2)
+    optim = dict(lr=1e-4, schedule="constant", eps=1e-5)
+    rng = np.random.default_rng(2)
+    b, samples, e_samples = 4, 512 * 160, 200 * 160
+    text = rng.integers(4, 60, (b, 6)).astype(np.int32)
+    batch = {
+        "speech": (rng.standard_normal((b, samples)) * 0.05).astype(np.float32),
+        "speech_lens": np.array([samples, samples - 9000, samples - 30000, samples], np.int32),
+        "enroll": (rng.standard_normal((b, e_samples)) * 0.05).astype(np.float32),
+        "enroll_lens": np.array([e_samples, e_samples - 5000, e_samples, e_samples], np.int32),
+        "text": text, "text_lens": np.full((b,), 6, np.int32),
+        "neg_logits": np.where(np.eye(b, dtype=bool), -10000.0, 1.0).astype(np.float32),
+        "spk_labels": rng.integers(0, 8, (b,)).astype(np.int32),
+    }
+    model = init_params(TSASRModel(WhisperDims(**dims), TSEncoderConfig(**ts),
+                                   TSModelConfig(**cfg)), 3)
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.save({"dims": dims, "ts": ts, "cfg": cfg, "optim": optim, "batch": batch,
+                "state_dict": sd, "device": "cuda",
+                "cases": [("dp", (2, 1), {}, {}, {}, 2),
+                          ("fsdp", (2, 1), dict(fsdp=True), {}, {}, 2)]},
+               tmp_path / "inputs.pt")
+    launch("train", 2, str(tmp_path), timeout=300)
+    outs = [torch.load(tmp_path / f"out-{r}.pt", weights_only=False) for r in range(2)]
+
+    tcfg = TrainConfig(optim=OptimConfig(**optim))
+    state = create_train_state(model, tcfg, device=cuda)
+    step = make_train_step(model, tcfg, device=cuda)
+    gen, stats = torch.Generator(cuda).manual_seed(0), []
+    for _ in range(2):
+        state, st = step(state, {k: torch.from_numpy(v) for k, v in batch.items()}, gen, 6)
+        stats.append({k: float(v) for k, v in st.items()})
+    for out in outs:
+        for case in ("dp", "fsdp"):
+            for got, want in zip(out[case]["stats"], stats):
+                for k, v in want.items():
+                    rel = 1e-4 if k == "grad_norm" else 1e-5
+                    assert got[k] == pytest.approx(v, rel=rel, abs=1e-6), (case, k)
+            for name, p in model.named_parameters():
+                np.testing.assert_allclose(out[case]["params"][name].numpy(),
+                                           p.detach().cpu().numpy(), rtol=0, atol=1e-5,
+                                           err_msg=f"{case} {name}")
+        sharded = set(out["fsdp"]["fsdp"])
+        assert len(sharded) > 10
+        for name, sizes in out["fsdp"]["stored"].items():
+            n = dict(model.named_parameters())[name].numel()
+            want = n // 2 if name in sharded else n
+            assert sizes == (want,) * 4, (name, sizes, n)

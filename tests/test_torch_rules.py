@@ -136,16 +136,9 @@ def test_paths_of_this_slice_build_and_run(dec_kw, change):
 
 
 def test_mesh_and_other_caches_raise():
-    """A mesh raises NotImplementedError naming its ROADMAP item; a cache
-    layout the decoder is not eligible for, or a self cache width with no
-    layout, raises ValueError."""
+    """A cache layout the decoder is not eligible for, or a self cache
+    width with no layout, raises ValueError."""
     dims = WhisperDims(n_text_state=128, n_text_head=2, n_text_layer=1, n_vocab=50)
-    enc = QFormerTSEncoder(dims, TSEncoderConfig(num_hidden_layers=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TranscriptionEngine(
-            enc, TSDecoder(dims), ByteTokenizer(), DecodeConfig(),
-            mesh=object(), device="cpu",
-        )
     for kw in (dict(), dict(self_kv_bits=8, tmin_self_cache=True),
                dict(flat_self_cache=False, tmin_self_cache=True)):
         with pytest.raises(ValueError, match="time-minor"):
@@ -211,17 +204,14 @@ def test_train_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_training_paths_outside_the_slice_raise():
-    """Sequence parallelism and FSDP / meshes raise NotImplementedError
-    naming their ROADMAP item; an enrollment type other than audio and
-    embedding raises ValueError."""
-    from robustsq_whisper_torch.train import TrainConfig, create_train_state, make_train_step
-
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        _train_model(sequence_parallel=True)
+    """An enrollment type other than audio and embedding raises
+    ValueError."""
     with pytest.raises(ValueError, match="audio|embedding"):
         _train_model(enroll_type="xvector")
-    for kw, cfg in ((dict(), TrainConfig(fsdp=True)), (dict(mesh=object()), TrainConfig())):
-        with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-            create_train_state(_train_model(), cfg, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-            make_train_step(_train_model(), cfg, device="cpu", **kw)
+
+
+def test_no_multi_gpu_refusal_is_left():
+    """The port serves and trains on a mesh: no source refuses it by naming
+    the multi-GPU item of the roadmap."""
+    for f in PORT.rglob("*.py"):
+        assert "ROADMAP A15" not in f.read_text(), f

@@ -494,18 +494,25 @@ def test_cli_train_then_decode_use_ave(dirs, tmp_path):
         assert {"wer", "cer", "rtf"} <= {line.split()[0] for line in f}
 
 
-@pytest.mark.parametrize(
-    "flag,value,item",
-    [("--n_data", "2", "A15"), ("--n_model", "2", "A15"), ("--fsdp", "true", "A15")],
-)
-def test_unsupported_flags_stop(flag, value, item, capsys):
-    from robustsq_whisper_torch.cli import train as ptrain
+@pytest.mark.parametrize("flag,value", [("--n_data", "2"), ("--n_model", "2"), ("--fsdp", "true")])
+def test_mesh_flags_are_no_ops_on_one_device(dirs, tmp_path, flag, value, caplog):
+    """One process makes no mesh, as the JAX CLI on one device: each flag
+    is logged and the run trains as without it (the same checkpoint)."""
+    import logging
 
-    argv = ["--config", DEV, "--train_dir", "/nonexistent", "--expdir", "/nonexistent",
-            "--device", "cpu", flag, value]
-    with pytest.raises(SystemExit):
-        ptrain.main(argv)
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+    from robustsq_whisper_torch.cli import train as ptrain
+    from robustsq_whisper_torch.train.checkpoint import read_payload
+
+    argv = ["--config", DEV, "--train_dir", dirs["train"], "--device", "cpu",
+            "--batch_size", "2", "--tokenizer_assets", RANKS, "--num_epochs", "1"]
+    caplog.set_level(logging.INFO)
+    assert ptrain.main(argv + ["--expdir", str(tmp_path / "a"), flag, value]) == 0
+    assert "one device: --n_data, --n_model and fsdp make no mesh" in caplog.text
+    assert ptrain.main(argv + ["--expdir", str(tmp_path / "b")]) == 0
+    a, _ = read_payload(str(tmp_path / "a" / "checkpoints"))
+    b, _ = read_payload(str(tmp_path / "b" / "checkpoints"))
+    for name, p in b["params"].items():
+        assert torch.equal(a["params"][name], p), name
 
 
 def test_cli_train_raises_without_cuda(dirs, tmp_path, monkeypatch):
