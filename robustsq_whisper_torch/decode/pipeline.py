@@ -46,6 +46,7 @@ from ..data import kaldi_io
 from ..models.ts_decoder import TSDecoder
 from ..models.ts_encoder import QFormerTSEncoder, SpkAdapterTSEncoder
 from ..models.whisper.modules import AudioEncoder
+from ..utils.profiling import annotate
 from .scorer import cer, wer
 from .search import DecodeConfig, build_beam_decoder, strip_eot
 from .speculative import build_speculative_decoder
@@ -288,27 +289,32 @@ def decode_dataset(
     emb = isinstance(encoder, SpkAdapterTSEncoder)
     with torch.inference_mode():
         for batch in dataset.batches(batch_size, shuffle=False, drop_last=False):
-            feats, feats_lens = mel(batch["speech"], batch["speech_lens"])
-            enroll = ((torch.from_numpy(batch["enroll_embed"]),) if emb
-                      else mel(batch["enroll"], batch["enroll_lens"]))
-            memory, spk_prompt = chunked_encode(encode, (feats, feats_lens, *enroll), outer_chunk)
-            if dcfg.ctc_decode_weight > 0:
-                # encoder lengths with the prompt frames, as the encoder's
-                # own: the joint scorer masks the frames beyond each
-                # utterance and bounds its length by them
-                prompt_frames = encoder.prompt_len
-                mem_lens = AudioEncoder.output_lengths(
-                    feats_lens, memory.shape[1] - prompt_frames
-                ) + prompt_frames
-                res = run(memory, spk_prompt, mem_lens)
-            else:
-                res = run(memory, spk_prompt)
+            with annotate("rsq:decode.frontend"):
+                feats, feats_lens = mel(batch["speech"], batch["speech_lens"])
+                enroll = ((torch.from_numpy(batch["enroll_embed"]),) if emb
+                          else mel(batch["enroll"], batch["enroll_lens"]))
+            with annotate("rsq:decode.encode"):
+                memory, spk_prompt = chunked_encode(encode, (feats, feats_lens, *enroll), outer_chunk)
+            with annotate("rsq:decode.search"):
+                if dcfg.ctc_decode_weight > 0:
+                    # encoder lengths with the prompt frames, as the encoder's
+                    # own: the joint scorer masks the frames beyond each
+                    # utterance and bounds its length by them
+                    prompt_frames = encoder.prompt_len
+                    mem_lens = AudioEncoder.output_lengths(
+                        feats_lens, memory.shape[1] - prompt_frames
+                    ) + prompt_frames
+                    res = run(memory, spk_prompt, mem_lens)
+                else:
+                    res = run(memory, spk_prompt)
             tokens, stats = res[0], (res[2] if len(res) == 3 else None)
             if pending is not None:
-                consume(pending)
+                with annotate("rsq:decode.consume"):
+                    consume(pending)
             pending = (batch["utt_ids"], batch["speech_lens"], tokens, stats)
         if pending is not None:
-            consume(pending)
+            with annotate("rsq:decode.consume"):
+                consume(pending)
     wall = time.time() - t0
 
     extra: Dict[str, float] = {}

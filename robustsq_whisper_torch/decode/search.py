@@ -48,6 +48,7 @@ import torch
 from .._device import resolve_device
 from ..models.ts_decoder import TSDecoder, quantize_step_weights
 from ..ops.beam_gather import CHUNK, beam_reorder_cache
+from ..utils.profiling import annotate
 from .timestamps import apply_timestamp_rules, update_timestamp_state
 
 NEG = -1e30  # score of a dead beam and of a masked token
@@ -163,13 +164,14 @@ def build_greedy_decoder(
         # prefill on the dense cross K/V (exact, runs once) and quantize
         # after for the token loop, unless prefill_quantized
         pq = cfg.prefill_quantized
-        cross = dec.cross_kv(memory, quantize=pq)
-        cache = dec.init_cache(b, total)
-        init = torch.tensor(cfg.init_tokens, dtype=torch.int64, device=dev)
-        init = init[None, :].expand(b, -1)
-        logits, cache = dec.prefill(init, spk_prompt, cache, cross)
-        if cfg.quantize_cross_kv and not pq:
-            cross = dec.quantize_cross(cross)
+        with annotate("rsq:decode.prefill"):
+            cross = dec.cross_kv(memory, quantize=pq)
+            cache = dec.init_cache(b, total)
+            init = torch.tensor(cfg.init_tokens, dtype=torch.int64, device=dev)
+            init = init[None, :].expand(b, -1)
+            logits, cache = dec.prefill(init, spk_prompt, cache, cross)
+            if cfg.quantize_cross_kv and not pq:
+                cross = dec.quantize_cross(cross)
 
         base = prompt_len + len(cfg.init_tokens)
         pos = torch.tensor(base, dtype=torch.int32, device=dev)
@@ -181,28 +183,33 @@ def build_greedy_decoder(
                         torch.full((b,), -1, dtype=torch.int64, device=dev),
                         torch.full((b,), cfg.timestamp_begin, dtype=torch.int64, device=dev))
         for i in range(max_new):
-            if i < min_new:
-                logits[:, cfg.eot] = -1e30
-            if cfg.with_timestamps:
-                logits = apply_timestamp_rules(
-                    logits.float(), *ts_state, cfg.timestamp_begin, cfg.eot,
-                    cfg.max_initial_timestamp_index,
-                )
-            logp = torch.log_softmax(logits, dim=-1)
-            tok = torch.argmax(logp, dim=-1)
-            tok = torch.where(done, cfg.eot, tok)
-            tok_logp = logp.gather(1, tok[:, None])[:, 0]
-            score = score + torch.where(done, 0.0, tok_logp)
-            done = done | (tok == cfg.eot)
-            tokens[:, i] = tok
-            if cfg.with_timestamps:
-                ts_state = update_timestamp_state(
-                    tok, ts_state[0], ts_state[2], cfg.timestamp_begin
-                )
-            if i + 1 == max_new or (cfg.stop_early and bool(done.all())):
-                break  # the next step's logits would go unused
-            logits, cache = dec.step(tok[:, None], pos, cache, cross, qw=qw)
-            pos += 1
+            with annotate("rsq:decode.step"):
+                if i < min_new:
+                    logits[:, cfg.eot] = -1e30
+                if cfg.with_timestamps:
+                    logits = apply_timestamp_rules(
+                        logits.float(), *ts_state, cfg.timestamp_begin, cfg.eot,
+                        cfg.max_initial_timestamp_index,
+                    )
+                logp = torch.log_softmax(logits, dim=-1)
+                tok = torch.argmax(logp, dim=-1)
+                tok = torch.where(done, cfg.eot, tok)
+                tok_logp = logp.gather(1, tok[:, None])[:, 0]
+                score = score + torch.where(done, 0.0, tok_logp)
+                done = done | (tok == cfg.eot)
+                tokens[:, i] = tok
+                if cfg.with_timestamps:
+                    ts_state = update_timestamp_state(
+                        tok, ts_state[0], ts_state[2], cfg.timestamp_begin
+                    )
+                if i + 1 == max_new:
+                    break  # the next step's logits would go unused
+                with annotate("rsq:decode.stop_check"):
+                    stop = cfg.stop_early and bool(done.all())
+                if stop:
+                    break
+                logits, cache = dec.step(tok[:, None], pos, cache, cross, qw=qw)
+                pos += 1
         return tokens, score
 
     return run
@@ -287,18 +294,19 @@ def build_beam_decoder(
 
         # prefill at plain batch rows: every beam starts from the same prefix
         pq = cfg.prefill_quantized
-        cross = dec.cross_kv(memory, quantize=pq)
-        cache = dec.init_cache(b, total, layout="flat")
-        init = torch.tensor(cfg.init_tokens, dtype=torch.int64, device=dev)
-        logits, cache = dec.prefill(init[None, :].expand(b, -1), spk_prompt, cache, cross)
-        if cfg.quantize_cross_kv:
-            # stays at batch rows: the grouped kernel shares it across beams
-            if not pq:
-                cross = dec.quantize_cross(cross)
-            group = k
-        else:  # dense cross K/V is expanded across beams (stacked axis 1)
-            cross = tuple(x.repeat_interleave(k, dim=1) for x in cross)
-            group = 1
+        with annotate("rsq:decode.prefill"):
+            cross = dec.cross_kv(memory, quantize=pq)
+            cache = dec.init_cache(b, total, layout="flat")
+            init = torch.tensor(cfg.init_tokens, dtype=torch.int64, device=dev)
+            logits, cache = dec.prefill(init[None, :].expand(b, -1), spk_prompt, cache, cross)
+            if cfg.quantize_cross_kv:
+                # stays at batch rows: the grouped kernel shares it across beams
+                if not pq:
+                    cross = dec.quantize_cross(cross)
+                group = k
+            else:  # dense cross K/V is expanded across beams (stacked axis 1)
+                cross = tuple(x.repeat_interleave(k, dim=1) for x in cross)
+                group = 1
         cache = tuple(x.repeat_interleave(k, dim=1) for x in cache)
         logits = logits.repeat_interleave(k, dim=0)  # (b*k, vocab)
         t_pad = cache[0].shape[2]
@@ -324,45 +332,50 @@ def build_beam_decoder(
         anc = identity
 
         for i in range(max_new):
-            if i < min_new:
-                logits[:, cfg.eot] = NEG
-            logp = torch.log_softmax(logits, dim=-1).reshape(b, k, vocab)
-            logp = torch.where(done[..., None], eot_only, logp)
-            cand = (scores[..., None] + logp).reshape(b, k * vocab)
-            scores, top_idx = top_k_stable(cand, k)
-            src_beam = top_idx // vocab
-            tok = (top_idx % vocab).to(torch.int32)
-            toks[i] = tok
-            backptr[i] = src_beam
-            done_prev = done.gather(1, src_beam)
-            done = done_prev | (tok == cfg.eot)
-            # lengths follow the beam lineage
-            lengths = lengths.gather(1, src_beam) + (~done_prev).to(torch.int32)
-            if i + 1 == max_new or (cfg.stop_early and bool(done.all())):
-                break  # the next step's logits would go unused
+            with annotate("rsq:decode.step"):
+                if i < min_new:
+                    logits[:, cfg.eot] = NEG
+                logp = torch.log_softmax(logits, dim=-1).reshape(b, k, vocab)
+                logp = torch.where(done[..., None], eot_only, logp)
+                cand = (scores[..., None] + logp).reshape(b, k * vocab)
+                scores, top_idx = top_k_stable(cand, k)
+                src_beam = top_idx // vocab
+                tok = (top_idx % vocab).to(torch.int32)
+                toks[i] = tok
+                backptr[i] = src_beam
+                done_prev = done.gather(1, src_beam)
+                done = done_prev | (tok == cfg.eot)
+                # lengths follow the beam lineage
+                lengths = lengths.gather(1, src_beam) + (~done_prev).to(torch.int32)
+                if i + 1 == max_new:
+                    break  # the next step's logits would go unused
+                with annotate("rsq:decode.stop_check"):
+                    stop = cfg.stop_early and bool(done.all())
+                if stop:
+                    break
 
-            gather_idx = (row0 + src_beam).reshape(-1)
-            step_kw = {}
-            if R:
-                anc = anc.index_select(0, gather_idx)  # compose permutations
-                for x in cache:  # the window holds logical rows
-                    x[:, :, s0:s0 + R] = x[:, :, s0:s0 + R].index_select(1, gather_idx)
-                if base + i - s0 >= R:  # flush the settled permutation
-                    if s0 > 0:  # the kernel's live chunks stop at s0
-                        beam_reorder_cache(cache, anc, live=s0, time_len=t_pad)
-                    anc = identity
-                    s0 += R
-                    s0_dev += R
-                step_kw = dict(row_map=anc, settled=s0_dev, defer_window=R)
-            elif not use_kernel:  # the JAX package's XLA gather
-                cache = tuple(x.index_select(1, gather_idx) for x in cache)
-            else:  # positions [0, base + i) hold data
-                cache = beam_reorder_cache(cache, gather_idx, live=base + i, time_len=t_pad)
-            logits, cache = dec.step(
-                tok.reshape(-1, 1), pos, cache, cross, beam_group=group, qw=qw,
-                **step_kw,
-            )
-            pos += 1
+                gather_idx = (row0 + src_beam).reshape(-1)
+                step_kw = {}
+                if R:
+                    anc = anc.index_select(0, gather_idx)  # compose permutations
+                    for x in cache:  # the window holds logical rows
+                        x[:, :, s0:s0 + R] = x[:, :, s0:s0 + R].index_select(1, gather_idx)
+                    if base + i - s0 >= R:  # flush the settled permutation
+                        if s0 > 0:  # the kernel's live chunks stop at s0
+                            beam_reorder_cache(cache, anc, live=s0, time_len=t_pad)
+                        anc = identity
+                        s0 += R
+                        s0_dev += R
+                    step_kw = dict(row_map=anc, settled=s0_dev, defer_window=R)
+                elif not use_kernel:  # the JAX package's XLA gather
+                    cache = tuple(x.index_select(1, gather_idx) for x in cache)
+                else:  # positions [0, base + i) hold data
+                    cache = beam_reorder_cache(cache, gather_idx, live=base + i, time_len=t_pad)
+                logits, cache = dec.step(
+                    tok.reshape(-1, 1), pos, cache, cross, beam_group=group, qw=qw,
+                    **step_kw,
+                )
+                pos += 1
 
         if cfg.length_penalty > 0.0:
             norm = scores / lengths.float() ** cfg.length_penalty

@@ -56,6 +56,7 @@ from .._device import resolve_device
 from ..parallel import collectives
 from ..parallel.mesh import local_rows, use_mesh
 from ..parallel.shard import ShardLayout, replication, shard_model
+from ..utils.profiling import annotate
 from .lora import Factors, LoraConfig, attach_lora, init_lora
 from .optim import AdamW, OptimConfig, global_norm
 
@@ -214,23 +215,27 @@ def make_train_step(
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None, epoch: float = 0):
-        batch = {k: v.to(dev) for k, v in place_batch(batch, mesh).items()}
-        for t in state.trainables:
-            t.grad = None
-        with use_mesh(mesh):
-            loss, stats = state.model(batch, generator, epoch, train=True)
-            loss.backward()
-        grads = [
-            torch.zeros_like(t) if t.grad is None else t.grad for t in state.trainables
-        ]
-        sync_grads(state, grads)
-        if state.layout is not None:
-            stats = _mean_stats(stats, state.layout.data_group)
-        stats["grad_norm"] = state.opt.norm(grads)
-        state.opt.update(grads)
-        for t in state.trainables:
-            t.grad = None
-        state.step += 1
+        with annotate("rsq:train.step"):
+            batch = {k: v.to(dev) for k, v in place_batch(batch, mesh).items()}
+            for t in state.trainables:
+                t.grad = None
+            with use_mesh(mesh):
+                with annotate("rsq:train.forward"):
+                    loss, stats = state.model(batch, generator, epoch, train=True)
+                with annotate("rsq:train.backward"):
+                    loss.backward()
+            with annotate("rsq:train.optimizer"):
+                grads = [
+                    torch.zeros_like(t) if t.grad is None else t.grad for t in state.trainables
+                ]
+                sync_grads(state, grads)
+                if state.layout is not None:
+                    stats = _mean_stats(stats, state.layout.data_group)
+                stats["grad_norm"] = state.opt.norm(grads)
+                state.opt.update(grads)
+            for t in state.trainables:
+                t.grad = None
+            state.step += 1
         return state, stats
 
     return step

@@ -1,10 +1,9 @@
 """The port's ``utils/profiling.py`` against the JAX package's, on the CPU:
-``StepTimer`` over a scripted clock, ``trace`` / ``annotate`` through
-``torch.profiler`` into a chrome trace, ``op_stats`` / ``top_ops`` over it
-and ``log_compile_time``."""
+``trace`` / ``annotate`` through ``torch.profiler`` into a chrome trace and
+``op_stats`` / ``top_ops`` over it. The program's spans are
+``tests/test_torch_spans.py``'s."""
 
 import json
-import logging
 
 import pytest
 import torch
@@ -13,19 +12,6 @@ from robustsq_whisper_tpu.utils import profiling as jprof
 from robustsq_whisper_torch.utils import profiling as tprof
 
 torch.set_num_threads(1)
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    """The same EMA of steps/s as JAX's over the same clock readings."""
-    clock = [10.0, 10.5, 10.75, 11.75, 11.8, 13.0]
-    out = {}
-    for name, mod in (("jax", jprof), ("port", tprof)):
-        ticks = iter(clock)
-        monkeypatch.setattr(mod.time, "time", lambda: next(ticks))
-        timer = mod.StepTimer(ema=0.8)
-        out[name] = [timer.tick() for _ in clock]
-    assert out["port"] == out["jax"]
-    assert out["port"][0] is None and out["port"][1] == 2.0
 
 
 def _work():
@@ -71,12 +57,3 @@ def test_op_stats_and_top_ops(tmp_path):
     with pytest.raises(FileNotFoundError):
         tprof.op_stats(str(tmp_path / "missing"))
 
-
-def test_log_compile_time_logs_the_first_call_once(caplog):
-    calls = []
-    fn = tprof.log_compile_time("step", lambda x: calls.append(x) or x + 1)
-    with caplog.at_level(logging.INFO, logger="robustsq_whisper_torch.profiling"):
-        assert fn(1) == 2 and fn(2) == 3
-    assert calls == [1, 2]
-    assert [r.getMessage().split(":")[0] for r in caplog.records] == ["step"]
-    assert "first call" in caplog.records[0].getMessage()
