@@ -228,8 +228,11 @@ def decode_dataset(
     The loop keeps the JAX package's order: batch i is encoded and decoded,
     then the host detokenizes batch i-1 (the only place tokens move to the
     host) and reads the audio of batch i+1. It does not keep its overlap:
-    ``run`` syncs with the host at every decode step (ROADMAP D5), so the
-    device has finished batch i before the host goes on."""
+    the greedy ``run`` issues its token steps at most ``search.RUN_AHEAD``
+    steps ahead of the device and returns with the last of them in
+    flight, but the copy of batch i-1's tokens queues behind them, so the
+    device has finished batch i before the host goes on (beam search still
+    syncs with the host at every step)."""
     dev = resolve_device(device)
     if enc_chunk < 0:
         raise ValueError(f"enc_chunk must be >= 0, got {enc_chunk}")

@@ -5,10 +5,16 @@ is prefilled once, then one token per step runs over the preallocated self
 cache (updated in place) and the cross K/V, quantized for the token loop
 when ``quantize_cross_kv`` is set. Greedy takes the decoder's own cache
 layout (``TextDecoder.init_cache(layout=None)``: time-minor when asked for
-and eligible, else flat, else 5-D; dense or int8). The loop runs eagerly;
-with ``stop_early`` it ends once every row (every beam) emitted eot, which
-costs one device-to-host read per token. ``speculative_gamma > 0`` hands
-greedy decode to ``decode/speculative.py``.
+and eligible, else flat, else 5-D; dense or int8). On CUDA over the flat
+or time-minor cache (``step_graph.graph_step_applies``) greedy replays
+each token step as one CUDA graph (``decode/step_graph.py``), kept for the
+batch shape; sampling runs eagerly. With ``stop_early`` greedy ends at
+the first step whose stop flag, copied to the host without blocking
+(``StopFlags``), says every row emitted eot: the host runs ahead of the
+device by at most ``RUN_AHEAD`` steps and waits only there. Beam search
+stops at once, on one device-to-host read per token.
+``speculative_gamma > 0`` hands greedy decode to
+``decode/speculative.py``.
 
 Beam search flattens (batch, beam) into the row axis, row ``i * k + j``
 for utterance ``i`` and beam ``j``, over the flat cache where the dims
@@ -39,9 +45,10 @@ stays dense.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
-from typing import Callable, List, Tuple
+from typing import Callable, Deque, List, Tuple
 
 import torch
 
@@ -49,9 +56,11 @@ from .._device import resolve_device
 from ..models.ts_decoder import TSDecoder, quantize_step_weights
 from ..ops.beam_gather import CHUNK, beam_reorder_cache
 from ..utils.profiling import annotate
+from .step_graph import StepGraphs, graph_step_applies
 from .timestamps import apply_timestamp_rules, update_timestamp_state
 
 NEG = -1e30  # score of a dead beam and of a masked token
+RUN_AHEAD = 4  # greedy steps the host may issue past the oldest stop flag it has not read
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +159,8 @@ def build_greedy_decoder(
     _check_config(dec, cfg)
     dec.to(dev).eval()
     qw = _step_weights(dec, cfg)
+    graphs = StepGraphs()
+    stop = StopFlags(dev)
 
     @torch.inference_mode()
     def run(memory: torch.Tensor, spk_prompt: torch.Tensor):
@@ -159,22 +170,34 @@ def build_greedy_decoder(
         max_new, min_new = length_bounds(
             cfg, memory, spk_prompt, dec.use_spk_prompt
         )
-        total = prompt_len + len(cfg.init_tokens) + max_new
+        base = prompt_len + len(cfg.init_tokens)
+        total = base + max_new
+        graph = None
+        if graph_step_applies(dec, dev, dec.decoder.default_layout,
+                              with_timestamps=cfg.with_timestamps):
+            graph = graphs.get((b, total, memory.shape[1]))
 
         # prefill on the dense cross K/V (exact, runs once) and quantize
         # after for the token loop, unless prefill_quantized
         pq = cfg.prefill_quantized
         with annotate("rsq:decode.prefill"):
-            cross = dec.cross_kv(memory, quantize=pq)
-            cache = dec.init_cache(b, total)
+            # the graph's cross K/V is written in place where the prefill's
+            # is the loop's
+            direct = graph is not None and (pq or not cfg.quantize_cross_kv)
+            cross = dec.cross_kv(memory, quantize=pq, out=graph.cross if direct else None)
+            if graph is None:
+                pos = torch.tensor(base, dtype=torch.int32, device=dev)
+                cache = dec.init_cache(b, total)
+            else:
+                pos, cache = graph.start(dec, b, total, base)
             init = torch.tensor(cfg.init_tokens, dtype=torch.int64, device=dev)
             init = init[None, :].expand(b, -1)
             logits, cache = dec.prefill(init, spk_prompt, cache, cross)
             if cfg.quantize_cross_kv and not pq:
                 cross = dec.quantize_cross(cross)
+            if graph is not None:
+                cross = graph.keep_cross(cross)
 
-        base = prompt_len + len(cfg.init_tokens)
-        pos = torch.tensor(base, dtype=torch.int32, device=dev)
         done = torch.zeros(b, dtype=torch.bool, device=dev)
         score = torch.zeros(b, dtype=torch.float32, device=dev)
         tokens = torch.full((b, max_new), cfg.eot, dtype=torch.int32, device=dev)
@@ -182,6 +205,7 @@ def build_greedy_decoder(
             ts_state = (torch.full((b,), -1, dtype=torch.int64, device=dev),
                         torch.full((b,), -1, dtype=torch.int64, device=dev),
                         torch.full((b,), cfg.timestamp_begin, dtype=torch.int64, device=dev))
+        stop.reset()
         for i in range(max_new):
             with annotate("rsq:decode.step"):
                 if i < min_new:
@@ -205,14 +229,68 @@ def build_greedy_decoder(
                 if i + 1 == max_new:
                     break  # the next step's logits would go unused
                 with annotate("rsq:decode.stop_check"):
-                    stop = cfg.stop_early and bool(done.all())
-                if stop:
-                    break
-                logits, cache = dec.step(tok[:, None], pos, cache, cross, qw=qw)
+                    if cfg.stop_early and stop.push(done):
+                        break
+                logits, cache = dec.step(tok[:, None], pos, cache, cross, qw=qw, graph=graph)
                 pos += 1
         return tokens, score
 
     return run
+
+
+class _Settled:
+    """A stop flag's event on the CPU, where the flag's copy is done when it
+    returns."""
+
+    def record(self) -> None:
+        pass
+
+    def query(self) -> bool:
+        return True
+
+    def synchronize(self) -> None:
+        pass
+
+
+class StopFlags:
+    """The greedy loop's stop check without a host wait. ``push(done)``
+    copies ``done.all()`` without blocking into a pinned host flag and
+    records an event behind it, then reads the flags whose events have
+    completed (``query``, oldest first) and returns True at the first that
+    says every row is done. Only once the host has issued ``RUN_AHEAD``
+    steps past the oldest flag it has not read does it wait, on that flag's
+    event. A batch whose rows are all done thus runs at most ``RUN_AHEAD``
+    more steps; done rows emit eot and add 0 to the score, so the tokens and
+    scores are those of a loop that stops at once."""
+
+    def __init__(self, dev: torch.device):
+        cuda = dev.type == "cuda"
+        n = RUN_AHEAD + 1  # a flag for each step that may be in flight
+        self.flags = torch.zeros(n, dtype=torch.bool, pin_memory=cuda)
+        self.events = [torch.cuda.Event() if cuda else _Settled() for _ in range(n)]
+        self.pending: Deque[int] = collections.deque()
+        self.pushed = 0
+
+    def reset(self) -> None:
+        self.pending.clear()
+        self.pushed = 0
+
+    def push(self, done: torch.Tensor) -> bool:
+        slot = self.pushed % len(self.flags)
+        self.pushed += 1
+        self.flags[slot].copy_(done.all(), non_blocking=True)
+        self.events[slot].record()
+        self.pending.append(slot)
+        while self.pending:
+            oldest = self.pending[0]
+            if len(self.pending) > RUN_AHEAD:
+                self.events[oldest].synchronize()
+            elif not self.events[oldest].query():
+                return False
+            self.pending.popleft()
+            if self.flags[oldest]:
+                return True
+        return False
 
 
 def top_k_stable(x: torch.Tensor, k: int):

@@ -7,7 +7,8 @@ positions only. For decoding, the prefill runs [<|startofprev|>; speaker
 prompt; init tokens] once over the KV cache, then ``step`` extends one token
 at a time (or M tokens at per-row positions, the speculative verify, on the
 5-D cache), with the W8A8 step weights of ``quantize_step_weights`` when
-given them.
+given them, eagerly or as the replay of the greedy loop's CUDA graph
+(``decode/step_graph.py``).
 """
 
 from __future__ import annotations
@@ -76,8 +77,8 @@ class TSDecoder(nn.Module):
         hidden = self.decoder.forward_embedded(x_emb, memory)
         return self.decoder.logits(hidden)[:, prefix:]
 
-    def cross_kv(self, memory: torch.Tensor, quantize: bool = False):
-        return self.decoder.cross_kv(memory, quantize=quantize)
+    def cross_kv(self, memory: torch.Tensor, quantize: bool = False, out=None):
+        return self.decoder.cross_kv(memory, quantize=quantize, out=out)
 
     def quantize_cross(self, cross):
         return self.decoder.quantize_cross(cross)
@@ -111,9 +112,15 @@ class TSDecoder(nn.Module):
         settled=None,  # deferred beam reorder: settled-prefix length
         defer_window: int = 8,
         qw=None,  # int8 step weights (quantize_step_weights)
+        graph=None,  # decode.step_graph.StepGraph: replay it instead
     ):
         """token: (batch, M) ids; pos: device int32 scalar position, or a
-        (batch,) vector of per-row positions of the first token."""
+        (batch,) vector of per-row positions of the first token. With
+        ``graph`` (the greedy loop's, over its own ``pos``, cache and
+        cross K/V) the step is that graph's replay, and the logits its
+        output buffer."""
+        if graph is not None:
+            return graph.step(self, token, pos, cache, cross, qw=qw)
         return self.decoder.step(
             self.decoder.embed(token), pos, cache, cross,
             beam_group=beam_group, row_map=row_map, settled=settled,

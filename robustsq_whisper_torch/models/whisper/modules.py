@@ -781,6 +781,14 @@ class TextDecoder(nn.Module):
         )
 
     @property
+    def default_layout(self) -> str:
+        """The layout ``init_cache(layout=None)`` gives: ``tmin``, ``flat``
+        or ``5d``."""
+        if self._tmin_self:
+            return "tmin"
+        return "flat" if self._flat_self else "5d"
+
+    @property
     def _flat_quant(self) -> bool:
         """The int8 flat cache: int8 K/V and one bf16 scale leaf."""
         return self._flat_self and self.self_kv_bits == 8
@@ -871,15 +879,19 @@ class TextDecoder(nn.Module):
 
     # ---- KV-cache decode path ----
 
-    def cross_kv(self, memory: torch.Tensor, quantize: bool = False):
+    def cross_kv(self, memory: torch.Tensor, quantize: bool = False, out=None):
         """Per-layer K/V of the encoder memory stacked on a leading layer
-        axis; ``quantize=True`` gives the quantized 6-tuple."""
+        axis; ``quantize=True`` gives the quantized 6-tuple. ``out``: the
+        tensors of an earlier call of these shapes to stack into (the
+        greedy step graph's static cross K/V)."""
         memory = memory.to(self.dtype)
         per_layer = [
             b.cross_attn.kv_quant(memory) if quantize else b.cross_attn.kv(memory)
             for b in self.blocks
         ]
-        return tuple(torch.stack(parts) for parts in zip(*per_layer))
+        if out is None:
+            return tuple(torch.stack(parts) for parts in zip(*per_layer))
+        return tuple(torch.stack(parts, out=o) for parts, o in zip(zip(*per_layer), out))
 
     def quantize_cross(self, cross: CrossKV):
         """Dense stacked cross K/V -> the quantized decode layout, with

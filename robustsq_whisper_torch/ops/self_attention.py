@@ -66,8 +66,9 @@ def quantize_flat_kv(k: torch.Tensor, v: torch.Tensor, heads: int):
 
     def one(x):
         g = x.float().reshape(*x.shape[:-1], heads, -1)
-        s = (g.abs().amax(dim=-1) / 127.0).to(torch.bfloat16)
-        s = torch.maximum(s, torch.tensor(1e-6, dtype=torch.bfloat16, device=x.device))
+        # the floor as a scalar: no host-to-device copy, so a CUDA graph can
+        # capture the step
+        s = torch.clamp((g.abs().amax(dim=-1) / 127.0).to(torch.bfloat16), min=1e-6)
         q8 = torch.clamp(torch.round(g / s[..., None].float()), -127, 127)
         return q8.to(torch.int8).reshape(x.shape), s
 

@@ -16,9 +16,11 @@ The spans: ``decode/pipeline.py::decode_dataset`` opens
 ``rsq:decode.frontend``, ``.encode``, ``.search`` and ``.consume`` a batch;
 ``decode/search.py``'s greedy and beam loops ``rsq:decode.prefill`` once
 and ``rsq:decode.step`` an iteration, with ``rsq:decode.stop_check`` (the
-host's read of the stop flag) inside it; ``train/step.py``'s step
-``rsq:train.step`` with ``rsq:train.forward``, ``.backward`` and
-``.optimizer`` inside it.
+host's read of the stop flag; greedy's may wait on the device there, see
+``search.StopFlags``) and greedy's ``rsq:decode.graph_replay``
+(``decode/step_graph.py``, one a replayed token step) inside it;
+``train/step.py``'s step ``rsq:train.step`` with ``rsq:train.forward``,
+``.backward`` and ``.optimizer`` inside it.
 """
 
 from __future__ import annotations

@@ -999,3 +999,115 @@ def test_data_parallel_train_steps_on_one_card_over_gloo(cuda, tmp_path):
             n = dict(model.named_parameters())[name].numel()
             want = n // 2 if name in sharded else n
             assert sizes == (want,) * 4, (name, sizes, n)
+
+
+GRAPH_CASES = {  # name: (TSDecoder keywords, dtype, DecodeConfig keywords)
+    "bf16-flat": ({}, torch.bfloat16, {}),
+    "f32-flat": ({}, torch.float32, {}),
+    "bf16-flat-int8": (dict(self_kv_bits=8), torch.bfloat16, {}),
+    "bf16-tmin": (dict(tmin_self_cache=True), torch.bfloat16, {}),
+    "bf16-w8a8": ({}, torch.bfloat16, dict(quantize_weights=True)),
+    "bf16-flat-dense-prefill": ({}, torch.bfloat16, dict(prefill_quantized=False)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_greedy_step_graph_equals_eager(cuda, case, monkeypatch):
+    """Greedy on a small Qformer decoder with the int4 cross K/V, its token
+    step replayed as one CUDA graph against the same decoder stepping
+    eagerly (``graph_step_applies`` patched off): over a batch, another of
+    its shape (which replays the graph over the cross K/V written into it),
+    one of other shapes and the first again (each of those captures its own
+    graph, the old one released), tokens, scores and every ``dec.step`` call's logits bit-equal,
+    and the kernels' launch counters equal; on a batch whose rows all emit
+    eot at the first allowed step (the final layer norm's bias along eot's
+    embedding), the same tokens and scores in at most ``RUN_AHEAD`` more
+    ``dec.step`` calls."""
+    import dataclasses
+    import gc
+    import weakref
+
+    from robustsq_whisper_torch.decode import search
+    from robustsq_whisper_torch.decode.step_graph import KERNEL_COUNTERS
+    from robustsq_whisper_torch.init import init_params
+    from robustsq_whisper_torch.models import TSDecoder, WhisperDims
+
+    dec_kw, dtype, cfg_kw = GRAPH_CASES[case]
+    dims = dict(n_mels=80, n_vocab=64, n_audio_ctx=16, n_audio_state=128, n_audio_head=2,
+                n_audio_layer=1, n_text_ctx=64, n_text_state=128, n_text_head=2,
+                n_text_layer=3)
+    cfg = search.DecodeConfig(**{**dict(
+        max_new_tokens=16, eot=2, init_tokens=(1, 4), min_new_tokens=3, quantize_cross_kv=True,
+        prefill_quantized=True), **cfg_kw})
+
+    def decoder(eot_bias):
+        dec = init_params(TSDecoder(WhisperDims(**dims), startofprev_token=3, cross_kv_bits=4,
+                                    **dec_kw), 5)
+        with torch.no_grad():
+            w = dec.decoder.token_embedding.weight[2]
+            dec.decoder.ln.bias += eot_bias * w / w.norm()
+        return dec.to(cuda, dtype)
+
+    rng = np.random.default_rng(7)
+    batch = lambda b, t: tuple(
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 3).to(cuda)
+        for s in ((b, t, 128), (b, 5, 128)))
+    batches = [batch(4, 40), batch(4, 40), batch(3, 100)]
+    batches.append(batches[0])
+    early = [batch(4, 40)]
+
+    def runs(dec, inputs, graphs_on, stop_early=True):
+        """(outputs, [(logits, graph ref) a dec.step call], launch counts,
+        the calls after each batch, the decoder's ``run``)."""
+        if not graphs_on:
+            monkeypatch.setattr(search, "graph_step_applies", lambda *a, **kw: False)
+        calls, step = [], dec.step
+
+        def captured(*a, **kw):
+            logits, cache = step(*a, **kw)
+            g = kw["graph"]
+            assert (g is not None) == graphs_on
+            calls.append((logits.clone(), None if g is None else weakref.ref(g)))
+            return logits, cache
+
+        dec.step = captured
+        for fn, attrs in KERNEL_COUNTERS:
+            for a in attrs:
+                setattr(fn, a, 0)
+        run = search.build_greedy_decoder(dec, dataclasses.replace(cfg, stop_early=stop_early), cuda)
+        outs, firsts = [], []
+        for memory, prompt in inputs:
+            outs.append(run(memory, prompt))
+            torch.cuda.synchronize()
+            firsts.append(len(calls))
+        counts = {(fn.__name__, a): getattr(fn, a) for fn, attrs in KERNEL_COUNTERS for a in attrs}
+        del dec.step
+        monkeypatch.undo()
+        return outs, calls, counts, firsts, run
+
+    dec = decoder(0.0)  # every batch runs all 15 calls, so the counts compare
+    e_outs, e_calls, e_counts, _, _ = runs(dec, batches, False, stop_early=False)
+    g_outs, g_calls, g_counts, firsts, g_run = runs(dec, batches, True, stop_early=False)
+    for (et, es), (gt, gs) in zip(e_outs, g_outs):
+        assert torch.equal(et, gt) and torch.equal(es, gs)
+    assert len(e_calls) == len(g_calls) == 4 * 15
+    for k, ((el, _), (gl, _)) in enumerate(zip(e_calls, g_calls)):
+        assert torch.equal(el, gl), f"logits of call {k}"
+    assert e_counts == g_counts and e_counts[("decode_cross_attention", "launches")] == 4 * 15 * 3
+    refs = [g_calls[n - 1][1] for n in firsts]  # each batch's graph
+    assert refs[0] is refs[1] and refs[1] is not refs[2] and refs[2] is not refs[3]
+    gc.collect()
+    assert refs[0]() is None and refs[2]() is None and refs[3]() is not None  # one live
+    del g_run
+    gc.collect()
+    assert refs[3]() is None  # and it goes with the decoder's run
+
+    dec = decoder(20.0)
+    (e_out,), e_calls, _, _, _ = runs(dec, early, False)
+    (g_out,), g_calls, _, _, _ = runs(dec, early, True)
+    assert (e_out[0][:, :3] != 2).all() and (e_out[0][:, 3:] == 2).all()
+    assert torch.equal(e_out[0], g_out[0]) and torch.equal(e_out[1], g_out[1])
+    assert len(e_calls) == 3 and 3 <= len(g_calls) <= 3 + search.RUN_AHEAD
+    for (el, _), (gl, _) in zip(e_calls, g_calls):
+        assert torch.equal(el, gl)
