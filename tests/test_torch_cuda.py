@@ -7,10 +7,13 @@ machine with the card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from robustsq_whisper_torch.models.whisper.config import whisper_dims
 from robustsq_whisper_torch.ops import beam_gather as tbg
 from robustsq_whisper_torch.ops import decode_attention as tdec
 from robustsq_whisper_torch.ops import flash_attention as tflash
@@ -66,19 +69,23 @@ F32_TOL = dict(rtol=1e-4, atol=1e-4)  # exp2f/__expf vs torch.exp
 # 1500, 1516: 8- and 16-byte words along T
 @pytest.mark.parametrize("t_len", [1, 63, 64, 65, 129, 256, 301, 1500, 1516])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_tmaj_kernel_matches_plain(cuda, t_len, dtype):
+# 640: an encoder chunk of 32 utterances x 20 heads (large-v3-turbo)
+@pytest.mark.parametrize("bh", [6, 640])
+def test_flash_tmaj_kernel_matches_plain(cuda, t_len, dtype, bh):
+    """Against the plain version in f32 on the same (bf16-valued) inputs:
+    a bf16 output is off by its own rounding and that of P (2^-9 each)."""
     g = torch.Generator(device=cuda).manual_seed(t_len)
     q, k, v = (
-        torch.randn(6, 64, t_len, generator=g, device=cuda).to(dtype)
+        torch.randn(bh, 64, t_len, generator=g, device=cuda).to(dtype)
         for _ in range(3)
     )
     n = tflash.flash_attention_tmaj.launches
     got = tflash.flash_attention_tmaj(q, k, v)
     torch.cuda.synchronize()
     assert tflash.flash_attention_tmaj.launches == n + 1
-    ref = tflash.flash_attention_tmaj_plain(q, k, v)
-    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-    torch.testing.assert_close(got.float(), ref.float(), **tol)
+    ref = tflash.flash_attention_tmaj_plain(q.float(), k.float(), v.float())
+    tol = F32_TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=3e-3)
+    torch.testing.assert_close(got.float(), ref, **tol)
 
 
 @pytest.mark.cuda
@@ -123,17 +130,21 @@ def _split_inputs(cuda, mode, group, t_pad=1536, b=1, h=2):
 @pytest.mark.parametrize("edge", ["0", "1", "tile-1", "tile", "tile+1", "1516"])
 @pytest.mark.parametrize("group", [1, 5])
 @pytest.mark.parametrize("mode", ["int4", "bf16"])
-def test_decode_cross_split_kernel_matches_plain(cuda, mode, group, edge):
+@pytest.mark.parametrize("b,h", [(1, 2), (128, 20)], ids=["b1h2", "b128h20"])
+def test_decode_cross_split_kernel_matches_plain(cuda, mode, group, edge, b, h):
     """T split across a cluster (S > 1 at one utterance of two heads) at the
     kv_len edges of a tile: ranks whose chunk lies past kv_len add nothing,
-    and kv_len 0 is the empty state (0, -1e30, 0). The state against the
-    plain version; the output with its scales against the plain version
-    (f32 q), or bit-equal to the state's output rounded to bf16 (bf16 q)."""
+    and kv_len 0 is the empty state (0, -1e30, 0); at large-v3-turbo's
+    decode batch (128 utterances of 20 heads) the 2560 pairs fill the card
+    and each takes one CTA (S = 1). The state against the plain version;
+    the output with its scales against the plain version (f32 q), or
+    bit-equal to the state's output rounded to bf16 (bf16 q)."""
     mode_id = tdec.PACKED_INT4_MODE if mode == "int4" else 2
     tile = tdec.TILE[mode_id]
     kv_len = {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1}.get(edge) or int(edge)
-    q, k_s, kt, vt = _split_inputs(cuda, mode, group)
-    assert tdec.choose_splits(2, 1536, mode_id, tdec._sm_count(cuda.index or 0)) > 1
+    q, k_s, kt, vt = _split_inputs(cuda, mode, group, b=b, h=h)
+    splits = tdec.choose_splits(b * h, 1536, mode_id, tdec._sm_count(cuda.index or 0))
+    assert splits > 1 if b == 1 else splits == 1
     kw = dict(kv_len=kv_len, layer_idx=1, packed_int4=mode == "int4", group=group)
     qq = q if group > 1 else q[:, :, 0]
     n = tdec.decode_cross_attention.state_launches
@@ -1001,22 +1012,30 @@ def test_data_parallel_train_steps_on_one_card_over_gloo(cuda, tmp_path):
             assert sizes == (want,) * 4, (name, sizes, n)
 
 
-GRAPH_CASES = {  # name: (TSDecoder keywords, dtype, DecodeConfig keywords)
-    "bf16-flat": ({}, torch.bfloat16, {}),
-    "f32-flat": ({}, torch.float32, {}),
-    "bf16-flat-int8": (dict(self_kv_bits=8), torch.bfloat16, {}),
-    "bf16-tmin": (dict(tmin_self_cache=True), torch.bfloat16, {}),
-    "bf16-w8a8": ({}, torch.bfloat16, dict(quantize_weights=True)),
-    "bf16-flat-dense-prefill": ({}, torch.bfloat16, dict(prefill_quantized=False)),
+# dims, token ids (eot, init tokens, startofprev) and memory lengths
+GRAPH_SMALL = (dict(n_mels=80, n_vocab=64, n_audio_ctx=16, n_audio_state=128, n_audio_head=2,
+                    n_audio_layer=1, n_text_ctx=64, n_text_state=128, n_text_head=2,
+                    n_text_layer=3), (2, (1, 4), 3), (40, 100))
+GRAPH_TURBO = (dataclasses.asdict(whisper_dims("large-v3-turbo")),
+               (50257, (50258, 50259, 50360, 50364), 50362), (1516, 1500))
+GRAPH_CASES = {  # name: (TSDecoder keywords, dtype, DecodeConfig keywords, model)
+    "bf16-flat": ({}, torch.bfloat16, {}, GRAPH_SMALL),
+    "f32-flat": ({}, torch.float32, {}, GRAPH_SMALL),
+    "bf16-flat-int8": (dict(self_kv_bits=8), torch.bfloat16, {}, GRAPH_SMALL),
+    "bf16-tmin": (dict(tmin_self_cache=True), torch.bfloat16, {}, GRAPH_SMALL),
+    "bf16-w8a8": ({}, torch.bfloat16, dict(quantize_weights=True), GRAPH_SMALL),
+    "bf16-flat-dense-prefill": ({}, torch.bfloat16, dict(prefill_quantized=False), GRAPH_SMALL),
+    "bf16-flat-turbo": ({}, torch.bfloat16, {}, GRAPH_TURBO),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(GRAPH_CASES))
 def test_greedy_step_graph_equals_eager(cuda, case, monkeypatch):
-    """Greedy on a small Qformer decoder with the int4 cross K/V, its token
-    step replayed as one CUDA graph against the same decoder stepping
-    eagerly (``graph_step_applies`` patched off): over a batch, another of
+    """Greedy on a small Qformer decoder, or large-v3-turbo's (4 layers,
+    1280 wide, 20 heads, the v3 vocabulary) over a memory of its length,
+    with the int4 cross K/V, its token step replayed as one CUDA graph
+    against the same decoder stepping eagerly (``graph_step_applies`` patched off): over a batch, another of
     its shape (which replays the graph over the cross K/V written into it),
     one of other shapes and the first again (each of those captures its own
     graph, the old one released), tokens, scores and every ``dec.step`` call's logits bit-equal,
@@ -1024,7 +1043,6 @@ def test_greedy_step_graph_equals_eager(cuda, case, monkeypatch):
     eot at the first allowed step (the final layer norm's bias along eot's
     embedding), the same tokens and scores in at most ``RUN_AHEAD`` more
     ``dec.step`` calls."""
-    import dataclasses
     import gc
     import weakref
 
@@ -1033,29 +1051,27 @@ def test_greedy_step_graph_equals_eager(cuda, case, monkeypatch):
     from robustsq_whisper_torch.init import init_params
     from robustsq_whisper_torch.models import TSDecoder, WhisperDims
 
-    dec_kw, dtype, cfg_kw = GRAPH_CASES[case]
-    dims = dict(n_mels=80, n_vocab=64, n_audio_ctx=16, n_audio_state=128, n_audio_head=2,
-                n_audio_layer=1, n_text_ctx=64, n_text_state=128, n_text_head=2,
-                n_text_layer=3)
+    dec_kw, dtype, cfg_kw, (dims, (eot, init_tokens, sop), (t, t_other)) = GRAPH_CASES[case]
+    width, layers = dims["n_text_state"], dims["n_text_layer"]
     cfg = search.DecodeConfig(**{**dict(
-        max_new_tokens=16, eot=2, init_tokens=(1, 4), min_new_tokens=3, quantize_cross_kv=True,
-        prefill_quantized=True), **cfg_kw})
+        max_new_tokens=16, eot=eot, init_tokens=init_tokens, min_new_tokens=3,
+        quantize_cross_kv=True, prefill_quantized=True), **cfg_kw})
 
     def decoder(eot_bias):
-        dec = init_params(TSDecoder(WhisperDims(**dims), startofprev_token=3, cross_kv_bits=4,
+        dec = init_params(TSDecoder(WhisperDims(**dims), startofprev_token=sop, cross_kv_bits=4,
                                     **dec_kw), 5)
         with torch.no_grad():
-            w = dec.decoder.token_embedding.weight[2]
+            w = dec.decoder.token_embedding.weight[eot]
             dec.decoder.ln.bias += eot_bias * w / w.norm()
         return dec.to(cuda, dtype)
 
     rng = np.random.default_rng(7)
     batch = lambda b, t: tuple(
         torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 3).to(cuda)
-        for s in ((b, t, 128), (b, 5, 128)))
-    batches = [batch(4, 40), batch(4, 40), batch(3, 100)]
+        for s in ((b, t, width), (b, 5, width)))
+    batches = [batch(4, t), batch(4, t), batch(3, t_other)]
     batches.append(batches[0])
-    early = [batch(4, 40)]
+    early = [batch(4, t)]
 
     def runs(dec, inputs, graphs_on, stop_early=True):
         """(outputs, [(logits, graph ref) a dec.step call], launch counts,
@@ -1094,7 +1110,7 @@ def test_greedy_step_graph_equals_eager(cuda, case, monkeypatch):
     assert len(e_calls) == len(g_calls) == 4 * 15
     for k, ((el, _), (gl, _)) in enumerate(zip(e_calls, g_calls)):
         assert torch.equal(el, gl), f"logits of call {k}"
-    assert e_counts == g_counts and e_counts[("decode_cross_attention", "launches")] == 4 * 15 * 3
+    assert e_counts == g_counts and e_counts[("decode_cross_attention", "launches")] == 4 * 15 * layers
     refs = [g_calls[n - 1][1] for n in firsts]  # each batch's graph
     assert refs[0] is refs[1] and refs[1] is not refs[2] and refs[2] is not refs[3]
     gc.collect()
@@ -1106,8 +1122,9 @@ def test_greedy_step_graph_equals_eager(cuda, case, monkeypatch):
     dec = decoder(20.0)
     (e_out,), e_calls, _, _, _ = runs(dec, early, False)
     (g_out,), g_calls, _, _, _ = runs(dec, early, True)
-    assert (e_out[0][:, :3] != 2).all() and (e_out[0][:, 3:] == 2).all()
+    assert (e_out[0][:, :3] != eot).all() and (e_out[0][:, 3:] == eot).all()
     assert torch.equal(e_out[0], g_out[0]) and torch.equal(e_out[1], g_out[1])
     assert len(e_calls) == 3 and 3 <= len(g_calls) <= 3 + search.RUN_AHEAD
     for (el, _), (gl, _) in zip(e_calls, g_calls):
         assert torch.equal(el, gl)
+

@@ -149,14 +149,15 @@ def test_text_decoder_prefill_and_step_match_jax(dec_pair, quantize):
             np.testing.assert_allclose(t.numpy(), _np(j), rtol=1e-4, atol=1e-4)
 
 
-def test_log_mel_matches_jax():
+@pytest.mark.parametrize("n_mels", [80, 128])  # 128: large-v3 and large-v3-turbo
+def test_log_mel_matches_jax(n_mels):
     rng = np.random.default_rng(2)
     audio = (rng.standard_normal((2, 16000)) * 0.1).astype(np.float32)
     audio[1, 9000:] = 0.0  # a padded tail hits the floor
     lens = np.array([16000, 9000], np.int32)
-    ref, ref_l = jfront.log_mel_spectrogram(jnp.asarray(audio), jnp.asarray(lens))
-    got, got_l = tfront.log_mel_spectrogram(torch.from_numpy(audio), torch.from_numpy(lens))
-    assert got.shape == (2, 80, 100)
+    ref, ref_l = jfront.log_mel_spectrogram(jnp.asarray(audio), jnp.asarray(lens), n_mels)
+    got, got_l = tfront.log_mel_spectrogram(torch.from_numpy(audio), torch.from_numpy(lens), n_mels)
+    assert got.shape == (2, n_mels, 100)
     np.testing.assert_array_equal(got_l.numpy(), np.asarray(ref_l))
     # FFT vs the JAX DFT matmul in f32, through log10
     np.testing.assert_allclose(got.numpy(), _np(ref), rtol=1e-4, atol=1e-4)

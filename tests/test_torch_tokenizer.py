@@ -4,9 +4,12 @@ Same ids from ``encode`` and the same text from ``decode`` on the checked-in
 mini ranks file, for hypothesis-drawn text: letters of several scripts,
 non-ASCII numerics, contractions, punctuation and runs of spaces, tabs and
 newlines (and the Unicode White_Space characters that Python's
-``str.isspace`` disagrees on)."""
+``str.isspace`` disagrees on). The special-token layout each Whisper vocab
+size implies, and the benchmark's large-v3-turbo token ids, against the
+JAX package's."""
 
 import base64
+import dataclasses
 import json
 import pathlib
 
@@ -17,7 +20,8 @@ from hypothesis import strategies as st
 from robustsq_whisper_tpu.tokenizer import whisper_tokenizer as jtok
 from robustsq_whisper_torch.tokenizer import whisper_tokenizer as ptok
 
-RANKS = str(pathlib.Path(__file__).resolve().parent / "assets" / "mini_ranks.tiktoken")
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+RANKS = str(ROOT / "tests" / "assets" / "mini_ranks.tiktoken")
 
 ALPHABET = (
     list("abcdehlnorstuwXYZ") + list("éßøÆñ") + list("αβγΩλ") + list("абвЖя")
@@ -126,3 +130,28 @@ def test_load_tokenizer_choice(tmp_path):
         assert type(jtok.load_tokenizer(arg)).__name__ == want, arg
     text = "the hat"
     assert ptok.load_tokenizer(str(d)).encode(text) == jtok.load_tokenizer(str(d)).encode(text)
+
+
+@pytest.mark.parametrize("n_vocab", [51864, 51865, 51866])
+def test_special_tokens_for_vocab_equal_jax(n_vocab):
+    """English-only, multilingual and large-v3's layout (51866: <|yue|>
+    moves every id after the language block up by one), field by field and
+    for every language the layout holds."""
+    got, want = ptok.special_tokens_for_vocab(n_vocab), jtok.special_tokens_for_vocab(n_vocab)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    n_langs = want.translate - want.lang_offset
+    assert got.lang("en") == want.lang("en")
+    for code in jtok.LANGUAGES[:n_langs]:
+        assert got.lang(code) == want.lang(code), code
+
+
+def test_turbo_benchmark_token_ids_equal_jax():
+    """The large-v3-turbo benchmark configuration's ids are the JAX
+    package's v3 layout: sot, en, transcribe, notimestamps to start, eot to
+    stop, and startofprev before the speaker prompt."""
+    cfg = json.loads((ROOT / "portbench" / "configs" / "qformer_large_v3_turbo.json").read_text())
+    sp = jtok.special_tokens_for_vocab(cfg["whisper"]["n_vocab"])
+    assert cfg["model"]["vocab_size"] == sp.n_vocab == 51866
+    assert cfg["serving"]["init_tokens"] == [sp.sot, sp.lang("en"), sp.transcribe, sp.notimestamps]
+    assert cfg["serving"]["eot"] == cfg["model"]["eos"] == sp.eot
+    assert (cfg["model"]["sos"], cfg["model"]["startofprev"]) == (sp.sot, sp.startofprev)
