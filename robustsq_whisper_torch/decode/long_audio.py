@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..audio.frontend import SAMPLE_RATE, log_mel_spectrogram, pcm16_to_float, to_pcm16
+from ..audio.frontend import SAMPLE_RATE, log_mel_spectrogram, pcm16_log_mel
 from .search import DecodeConfig, build_beam_decoder, strip_eot
 
 
@@ -39,13 +39,6 @@ def chunk_waveform(
     return windows, lens
 
 
-def _mel(wave: np.ndarray, lens: np.ndarray, n_mels: int, dev):
-    """Log-mel of int16-staged waveforms (as the dataset path stages them)."""
-    x = pcm16_to_float(torch.from_numpy(to_pcm16(wave)).to(dev))
-    return log_mel_spectrogram(x, torch.from_numpy(np.asarray(lens, np.int32)).to(dev),
-                               n_mels=n_mels)
-
-
 def decode_long_audio(
     encoder: Any,  # QFormerTSEncoder
     decoder: Any,  # TSDecoder
@@ -65,7 +58,7 @@ def decode_long_audio(
     n = windows.shape[0]
     n_mels = encoder.dims.n_mels
     with torch.inference_mode():
-        feats, feats_lens = _mel(windows, lens, n_mels, dev)
+        feats, feats_lens = pcm16_log_mel(windows, lens, n_mels, dev)
         e1, _ = log_mel_spectrogram(
             torch.from_numpy(np.asarray(enroll, np.float32))[None].to(dev), n_mels=n_mels
         )
@@ -130,7 +123,7 @@ def decode_dataset_long(
             w, wl = windows[s : s + window_batch], lens[s : s + window_batch]
             n = w.shape[0]
             with torch.inference_mode():
-                feats, feats_lens = _mel(w, wl, n_mels, dev)
+                feats, feats_lens = pcm16_log_mel(w, wl, n_mels, dev)
                 memory, _, spk_prompt, _ = encoder(
                     feats, feats_lens, e1.expand(n, *e1.shape[1:]), e1_lens.expand(n)
                 )

@@ -41,7 +41,7 @@ import torch
 
 from .._device import resolve_device
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_size, rank
-from ..audio.frontend import log_mel_spectrogram, pcm16_to_float, to_pcm16
+from ..audio.frontend import pcm16_log_mel
 from ..data import kaldi_io
 from ..models.ts_decoder import TSDecoder
 from ..models.ts_encoder import QFormerTSEncoder, SpkAdapterTSEncoder
@@ -232,7 +232,11 @@ def decode_dataset(
     steps ahead of the device and returns with the last of them in
     flight, but the copy of batch i-1's tokens queues behind them, so the
     device has finished batch i before the host goes on (beam search still
-    syncs with the host at every step)."""
+    syncs with the host at every step). The frontend of batch i+1 then
+    costs the host one copy of its waveforms into pinned memory:
+    ``pcm16_log_mel`` sends the speech and the enrollments to the device
+    without a sync and quantizes them to int16's grid there, the grid kept
+    because it is exact for WAV audio."""
     dev = resolve_device(device)
     if enc_chunk < 0:
         raise ValueError(f"enc_chunk must be >= 0, got {enc_chunk}")
@@ -281,21 +285,15 @@ def decode_dataset(
                     stats["chunks"][i], stats["accepted"][i], stats["emitted"][i],
                 ]
 
-    n_mels = encoder.dims.n_mels
-
-    def mel(wave: np.ndarray, lens: np.ndarray):
-        # int16 on the wire: half the host-to-device bytes, exact for WAV audio
-        x = pcm16_to_float(torch.from_numpy(to_pcm16(wave)).to(dev))
-        return log_mel_spectrogram(x, torch.from_numpy(lens).to(dev), n_mels=n_mels)
-
     pending = None
     emb = isinstance(encoder, SpkAdapterTSEncoder)
+    n_mels = encoder.dims.n_mels
     with torch.inference_mode():
         for batch in dataset.batches(batch_size, shuffle=False, drop_last=False):
             with annotate("rsq:decode.frontend"):
-                feats, feats_lens = mel(batch["speech"], batch["speech_lens"])
+                feats, feats_lens = pcm16_log_mel(batch["speech"], batch["speech_lens"], n_mels, dev)
                 enroll = ((torch.from_numpy(batch["enroll_embed"]),) if emb
-                          else mel(batch["enroll"], batch["enroll_lens"]))
+                          else pcm16_log_mel(batch["enroll"], batch["enroll_lens"], n_mels, dev))
             with annotate("rsq:decode.encode"):
                 memory, spk_prompt = chunked_encode(encode, (feats, feats_lens, *enroll), outer_chunk)
             with annotate("rsq:decode.search"):

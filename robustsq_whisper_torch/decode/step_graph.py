@@ -13,7 +13,11 @@ still sees every token's logits, once a call.
 
 The first step of a new ``StepGraph`` runs eagerly on a side stream (the
 warm-up a capture needs; a real step whose logits are returned), then the
-step is captured on that stream. The kernels' launch counters
+step is captured on that stream, by ``CUDAGraph.capture_begin`` and
+``capture_end`` and not by ``torch.cuda.graph``, which would synchronize
+the device and empty both caching allocators (the device's and the pinned
+host memory's) at every capture, so that the job's next batch allocates
+them anew. The kernels' launch counters
 (``decode_cross_attention.launches`` and the others of ``KERNEL_COUNTERS``)
 are bumped in Python, which a capture runs once and a replay not at all:
 the capture's counts are taken back and added again on every replay, so the
@@ -138,8 +142,12 @@ class StepGraph:
             logits = run()  # the warm-up, a real step
         before = {(fn, a): getattr(fn, a) for fn, attrs in KERNEL_COUNTERS for a in attrs}
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-            self.logits = run()
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.logits = run()
+            finally:
+                graph.capture_end()
         self.counts = {c: getattr(*c) - n for c, n in before.items() if getattr(*c) != n}
         for (fn, attr), n in before.items():  # the capture launched nothing
             setattr(fn, attr, n)

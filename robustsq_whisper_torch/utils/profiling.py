@@ -13,7 +13,9 @@
   trace, per profiled run (the device kernels by default).
 
 The spans: ``decode/pipeline.py::decode_dataset`` opens
-``rsq:decode.frontend``, ``.encode``, ``.search`` and ``.consume`` a batch;
+``rsq:decode.frontend`` (``audio/frontend.py::pcm16_log_mel`` opens
+``rsq:decode.frontend_copy`` inside it, once a waveform batch),
+``.encode``, ``.search`` and ``.consume`` a batch;
 ``decode/search.py``'s greedy and beam loops ``rsq:decode.prefill`` once
 and ``rsq:decode.step`` an iteration, with ``rsq:decode.stop_check`` (the
 host's read of the stop flag; greedy's may wait on the device there, see

@@ -13,12 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+from robustsq_whisper_torch.audio import frontend as tfront
 from robustsq_whisper_torch.models.whisper.config import whisper_dims
 from robustsq_whisper_torch.ops import beam_gather as tbg
 from robustsq_whisper_torch.ops import decode_attention as tdec
 from robustsq_whisper_torch.ops import flash_attention as tflash
 from robustsq_whisper_torch.ops import quant as tquant
 from robustsq_whisper_torch.ops import self_attention as tself
+
+from ._waves import edge_wave
 
 
 def _cross_inputs(seed, mode, layers=3, b=2, h=2, d=64, t_pad=1536):
@@ -1128,3 +1131,116 @@ def test_greedy_step_graph_equals_eager(cuda, case, monkeypatch):
     for (el, _), (gl, _) in zip(e_calls, g_calls):
         assert torch.equal(el, gl)
 
+
+
+def _host_pcm16_mel(wave, lens, n_mels, dev):
+    """The decode job's frontend before ``pcm16_log_mel``: int16 on the
+    host, a pageable copy, the log-mel on the device."""
+    x = tfront.pcm16_to_float(torch.from_numpy(tfront.to_pcm16(wave)).to(dev))
+    return tfront.log_mel_spectrogram(x, torch.from_numpy(lens).to(dev), n_mels)
+
+
+# rows, samples, n_mels: the decode cells' speech and enrollments, and a small batch
+FRONTEND_SHAPES = [(128, 480000, 80), (128, 160000, 128), (3, 16000, 80)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width,n_mels", FRONTEND_SHAPES)
+@pytest.mark.parametrize("order", ["warm-no-sync", "back-to-back"])
+def test_device_frontend_equals_host_path(cuda, rows, width, n_mels, order):
+    """``pcm16_log_mel``'s features and frame counts equal the host int16
+    path's bit for bit. ``warm-no-sync``: once warm, a batch makes no
+    synchronizing call (``set_sync_debug_mode("error")``) and counts one
+    staged batch. ``back-to-back``: once warm, two batches sent behind a
+    device sleep, with no sync between, each get their own features (the
+    caching host allocator does not hand out a pinned block whose copy
+    still waits in the stream)."""
+    waves = [edge_wave(rows, width, seed) for seed in (0, 1)]
+    lens = np.array([width - 160 * (i % 7) for i in range(rows)], np.int32)
+    lens[-1] = width // 2
+    refs = [_host_pcm16_mel(w, lens, n_mels, cuda) for w in waves]
+    with torch.inference_mode():
+        if order == "warm-no-sync":
+            outs = [tfront.pcm16_log_mel(waves[0], lens, n_mels, cuda)]
+            torch.cuda.synchronize()
+            staged = tfront.pcm16_log_mel.staged
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                outs.append(tfront.pcm16_log_mel(waves[1], lens, n_mels, cuda))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert tfront.pcm16_log_mel.staged == staged + 1
+        else:
+            tfront.pcm16_log_mel(waves[1], lens, n_mels, cuda)  # pinned blocks cached
+            torch.cuda.synchronize()
+            torch.cuda._sleep(2_000_000_000)  # ~1 s: the first copy waits in the stream
+            outs = [tfront.pcm16_log_mel(w, lens, n_mels, cuda) for w in waves]
+    for (got, got_l), (ref, ref_l) in zip(outs, refs):
+        assert torch.equal(got, ref) and torch.equal(got_l, ref_l) and got_l.dtype == ref_l.dtype
+
+
+@pytest.mark.cuda
+def test_decode_dataset_stages_each_batch_once_a_width(cuda, monkeypatch):
+    """A tiny Qformer model's ``decode_dataset`` over three batches on the
+    card: the counter says two staged waveform batches a decode batch, and
+    the encoder's inputs and the hypotheses equal those of the same job
+    with the host int16 frontend in ``pcm16_log_mel``'s place. A second
+    job allocates no pinned memory: the first job's blocks stay cached,
+    since the step graph's capture does not empty the caches."""
+    from robustsq_whisper_torch.decode import pipeline
+    from robustsq_whisper_torch.decode.search import DecodeConfig
+    from robustsq_whisper_torch.init import init_params
+    from robustsq_whisper_torch.models import (TSASRModel, TSEncoderConfig, TSModelConfig,
+                                               WhisperDims)
+
+    dims = WhisperDims(n_mels=80, n_vocab=64, n_audio_ctx=256, n_audio_state=128,
+                       n_audio_head=2, n_audio_layer=2, n_text_ctx=32, n_text_state=128,
+                       n_text_head=2, n_text_layer=2)  # heads of 64, as the kernels take
+    ts = TSEncoderConfig(num_query_tokens=2, num_hidden_layers=1, qformer_hidden_size=32,
+                         qformer_heads=2, qformer_intermediate_size=64,
+                         qformer_hidden_dropout=0.0, qformer_attention_dropout=0.0)
+    mcfg = TSModelConfig(vocab_size=64, sos=1, eos=2, startofprev=3, num_speakers=8,
+                         num_negatives=2, use_specaug=False)
+    model = init_params(TSASRModel(dims, ts, mcfg), 0)
+    enc, dec = pipeline.serving_modules(dims, ts, mcfg, model.state_dict(), torch.float32, cuda)
+    dcfg = DecodeConfig(max_new_tokens=6, eot=2, init_tokens=(1, 4), quantize_cross_kv=True)
+    b, n = 3, 512 * 160
+
+    class Batches:
+        sample_rate = 16000
+        text = {}
+
+        def batches(self, batch_size, shuffle=False, drop_last=False):
+            for k in range(3):
+                yield {"utt_ids": [f"u{k}-{i}" for i in range(b)],
+                       "speech": edge_wave(b, n, k), "speech_lens": np.full(b, n - 4000 * k, np.int32),
+                       "enroll": edge_wave(b, n // 2, 10 + k),
+                       "enroll_lens": np.full(b, n // 2, np.int32)}
+
+    class IdTokenizer:
+        def decode(self, ids):
+            return " ".join(str(int(t)) for t in ids)
+
+    def job():
+        inputs = []
+        hook = enc.register_forward_pre_hook(
+            lambda m, args: inputs.append([a.clone() for a in args]))
+        try:
+            res = pipeline.decode_dataset(enc, dec, Batches(), IdTokenizer(), dcfg, batch_size=b,
+                                          device=cuda)
+        finally:
+            hook.remove()
+        return res.hyps, inputs
+
+    staged = tfront.pcm16_log_mel.staged
+    hyps, inputs = job()
+    assert tfront.pcm16_log_mel.staged == staged + 2 * 3
+    allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
+    assert job()[0] == hyps
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == allocs
+    monkeypatch.setattr(pipeline, "pcm16_log_mel", _host_pcm16_mel)
+    ref_hyps, ref_inputs = job()
+    assert hyps == ref_hyps and len(hyps) == 3 * b
+    assert len(inputs) == len(ref_inputs) == 3
+    for got, ref in zip(inputs, ref_inputs):
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))

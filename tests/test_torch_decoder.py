@@ -28,6 +28,9 @@ from robustsq_whisper_torch.convert import flax_to_state_dict, load_flax
 from robustsq_whisper_torch.models import TSDecoder, WhisperDims
 from robustsq_whisper_torch.models.whisper import modules as tmod
 
+from ._waves import edge_wave
+
+
 DIMS = dict(
     n_mels=80, n_vocab=120, n_audio_ctx=256, n_audio_state=128,
     n_audio_head=2, n_audio_layer=2, n_text_ctx=64, n_text_state=128,
@@ -161,6 +164,42 @@ def test_log_mel_matches_jax(n_mels):
     np.testing.assert_array_equal(got_l.numpy(), np.asarray(ref_l))
     # FFT vs the JAX DFT matmul in f32, through log10
     np.testing.assert_allclose(got.numpy(), _np(ref), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+@pytest.mark.parametrize("rows,width,lens_dtype", [
+    (3, 16000, np.int32),  # speech-like
+    (2, 4800, np.int64),   # enrollment-like, another width and lengths' dtype
+])
+def test_device_frontend_equals_host_pcm16_path(n_mels, rows, width, lens_dtype):
+    """``pcm16_log_mel``'s features and frame counts are those of the host
+    int16 path, bit for bit, and its quantizer is ``to_pcm16`` then
+    ``pcm16_to_float`` to the bit (a rounded small negative reads +0.0),
+    the port's and the JAX package's. The features are the JAX frontend's
+    on the same int16 samples within its FFT-versus-DFT-matmul tolerance
+    (``test_log_mel_matches_jax``). The caller's waveform is left as it was."""
+    for seed in (0, 1):
+        wave = edge_wave(rows, width, seed)
+        lens = np.array([width - 37 * i for i in range(rows)], lens_dtype)
+        lens[-1] = width // 2
+        x = tfront.pcm16_to_float(torch.from_numpy(tfront.to_pcm16(wave)))
+        jx = jfront.pcm16_to_float(jnp.asarray(jfront.to_pcm16(wave)))
+        np.testing.assert_array_equal(np.asarray(jx).view(np.int32), x.numpy().view(np.int32))
+        np.testing.assert_array_equal(
+            tfront.quantize_pcm16_(torch.from_numpy(wave.copy())).numpy().view(np.int32),
+            x.numpy().view(np.int32),
+        )
+        ref, ref_l = tfront.log_mel_spectrogram(x, torch.from_numpy(lens), n_mels)
+        jref, jref_l = jfront.log_mel_spectrogram(jx, jnp.asarray(lens), n_mels)
+        before = wave.copy()
+        got, got_l = tfront.pcm16_log_mel(wave, lens, n_mels, "cpu")
+        np.testing.assert_array_equal(wave, before)
+        assert got.shape == (rows, n_mels, width // 160) and got_l.dtype == ref_l.dtype
+        np.testing.assert_array_equal(got.numpy(), ref.numpy())
+        np.testing.assert_array_equal(got_l.numpy(), ref_l.numpy())
+        np.testing.assert_array_equal(got_l.numpy(), np.asarray(jref_l))
+        np.testing.assert_allclose(got.numpy(), _np(jref), rtol=1e-4, atol=1e-4)
+    assert tfront.pcm16_log_mel.staged == 0  # nothing is pinned off CUDA
 
 
 def test_pcm16_and_pad_or_trim_match_jax():

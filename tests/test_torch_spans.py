@@ -34,8 +34,8 @@ TS = dict(
 CFG = dict(vocab_size=64, sos=1, eos=2, startofprev=3, num_speakers=8, num_negatives=2,
            use_specaug=False)
 B, SAMPLES, E_SAMPLES, SR = 2, 512 * 160, 200 * 160, 16000
-DECODE_SPANS = ("rsq:decode.frontend", "rsq:decode.encode", "rsq:decode.search",
-                "rsq:decode.consume", "rsq:decode.prefill", "rsq:decode.step",
+DECODE_SPANS = ("rsq:decode.frontend", "rsq:decode.frontend_copy", "rsq:decode.encode",
+                "rsq:decode.search", "rsq:decode.consume", "rsq:decode.prefill", "rsq:decode.step",
                 "rsq:decode.stop_check")
 
 
@@ -156,7 +156,8 @@ DECODE_CASES = {
 
 @pytest.mark.parametrize("case", list(DECODE_CASES))
 def test_decode_spans(serving, tmp_path, case):
-    """Every decode span in the trace; one ``rsq:decode.step`` an iteration
+    """Every decode span in the trace, the two waveform copies of the
+    frontend inside it; one ``rsq:decode.step`` an iteration
     (a ``TSDecoder.step`` call each but the last); each stop check and each
     ``TSDecoder.step`` call inside a step; the prefill inside the search;
     the tokens those of a run without the profiler."""
@@ -197,6 +198,8 @@ def test_decode_spans(serving, tmp_path, case):
     (frontend,), (encode,) = _named(spans, "rsq:decode.frontend"), _named(spans, "rsq:decode.encode")
     (consume,) = _named(spans, "rsq:decode.consume")
     assert frontend[1] + frontend[2] <= encode[1] <= search[1] <= consume[1]
+    copies = _named(spans, "rsq:decode.frontend_copy")  # the speech's and the enrollments'
+    assert len(copies) == 2 and _within_one(copies, [frontend])
 
 
 @pytest.mark.parametrize("mode", ["full", "lora"])
