@@ -5,20 +5,20 @@
     python -m torch.distributed.run --nproc_per_node 2 multi_gpu_check.py --one-card
 
 One process a GPU over NCCL (``parallel.mesh.init_distributed``), Whisper-
-medium at full width and depth in bf16 with chip_smoke's seeded weights.
-With ``--one-card`` every rank computes on GPU 0 and the collectives go
-over gloo (NCCL does not hold two ranks of one communicator on one GPU);
-chip_smoke's phase 4g runs it so. Every rank holds the same global batch:
+medium at full width and depth in bf16 with seeded random weights. With
+``--one-card`` every rank computes on GPU 0 and the collectives go over
+gloo (NCCL does not hold two ranks of one communicator on one GPU). Every
+rank holds the same global batch:
 
 - data-parallel decode (``build_decode_fns`` on an ``(n, 1)`` mesh) of 4
-  (30 s, 10 s) pairs a rank, greedy and beam 5, chip_smoke's serving
-  settings. Each rank then decodes its own rows alone, as one device
-  would; that must equal its rows of the sharded decode bit for bit
+  (30 s, 10 s) pairs a rank, greedy and beam 5, at most 32 new tokens over
+  the int4 cross K/V. Each rank then decodes its own rows alone, as one
+  device would; that must equal its rows of the sharded decode bit for bit
   (tokens, the eot fill past its own width, scores) with the same launches
   of every kernel. Beside it, the share of tokens equal to one device's
-  decode of the whole batch, and both runs' ms (the whole batch takes
-  other shape-chosen kernel schedules than a rank's rows, so bf16 sums,
-  and with random weights near-tied tokens, may differ);
+  decode of the whole batch (the whole batch takes other shape-chosen
+  kernel schedules than a rank's rows, so bf16 sums, and with random
+  weights near-tied tokens, may differ);
 - tensor-parallel decode on an ``(n / 2, 2)`` mesh (the dense path: no
   flash, no quantized cross K/V, the 5-D self cache), greedy, against the
   one-device dense decode: the share of equal tokens (not with
@@ -29,8 +29,8 @@ chip_smoke's phase 4g runs it so. Every rank holds the same global batch:
   three times the largest bf16 errors read on H100s (1.75e-5 and 3.9e-3
   with two gloo ranks on one card, 3.8e-6 and 2.0e-3 over four cards: a
   rank's rows take other GEMM and kernel schedules than the whole batch),
-  rows 4, 5a and 5b launched on every rank as chip_smoke's
-  ``TRAIN_KERNELS``; each step's ms and the peak memory a rank.
+  the three flash training kernels launched on every rank as
+  ``TRAIN_KERNELS`` says; the peak memory a rank.
 
 Any failed check fails the run. Rank 0 prints the card's name and power
 limit and, last, one JSON line.
@@ -40,20 +40,142 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import subprocess
 import sys
-import time
+
+import numpy as np
 
 STEP_RTOL = {"loss": 5e-5, "grad_norm": 1e-2}
+TRAIN_B = 8  # the training batch: 8 x (30 s speech, 10 s enrollment)
+TRAIN_KERNELS = {"flash_attention": 48, "flash_attention_bwd_dq": 24,
+                 "flash_attention_bwd_dkv": 24}  # per step at medium
+MESH_PATHS = {  # path -> (decode config, kernels the decoder must launch)
+    "greedy": ({}, ("decode_cross_attention", "decode_self_attention")),
+    "beam 5": (dict(beam_size=5), ("decode_cross_attention_grouped", "beam_reorder_cache",
+                                   "decode_self_attention")),
+}
 
 
-def timed(torch, fn):
-    """``fn()`` after one warm call, launches counted (chip_smoke's
-    ``counted``); returns (its result, ms, {kernel: launches})."""
-    import chip_smoke as cs
+def gpu_info() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
 
+
+def launch_counters():
+    """{kernel: (wrapper, counter attribute)}, every kernel."""
+    from robustsq_whisper_torch.ops import beam_gather as bg
+    from robustsq_whisper_torch.ops import decode_attention as xa
+    from robustsq_whisper_torch.ops import flash_attention as fa
+    from robustsq_whisper_torch.ops import quant
+    from robustsq_whisper_torch.ops import self_attention as sa
+
+    return {
+        "flash_attention_tmaj": (fa.flash_attention_tmaj, "launches"),
+        "decode_cross_attention": (xa.decode_cross_attention, "launches"),
+        "decode_cross_attention_grouped": (xa.decode_cross_attention, "grouped_launches"),
+        "decode_self_attention": (sa.decode_self_attention, "launches"),
+        "decode_self_attention_int8": (sa.decode_self_attention, "int8_launches"),
+        "decode_cross_attention_state": (xa.decode_cross_attention, "state_launches"),
+        "beam_reorder_cache": (bg.beam_reorder_cache, "launches"),
+        "beam_reorder_cache_flat": (bg.beam_reorder_cache, "flat_launches"),
+        "settled_self_attention": (sa.settled_self_attention, "launches"),
+        "flash_attention": (fa.flash_attention_fwd, "launches"),
+        "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq, "launches"),
+        "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv, "launches"),
+        "w8a8_matmul": (quant.qmatmul, "launches"),
+    }
+
+
+def counted(torch, fn):
+    """Run ``fn`` with every launch count set to 0 just before and read just
+    after; returns (its result, {kernel: launches})."""
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    for w, attr in counters.values():
+        setattr(w, attr, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: getattr(w, attr) for n, (w, attr) in counters.items()}
+
+
+def warm_counted(torch, fn):
+    """``fn()`` after one warm call, launches counted."""
     fn()
-    out, wall, counts = cs.counted(torch, fn)
-    return out, wall * 1e3, counts
+    return counted(torch, fn)
+
+
+def synthetic_pairs(n: int, seed: int, seconds: float = 30.0):
+    """(speech ``seconds``, enrollment 10 s) pairs: tones with harmonics +
+    noise."""
+    rng = np.random.default_rng(seed)
+    sr = 16000
+
+    def voice(seconds, f0):
+        t = np.arange(int(seconds * sr)) / sr
+        x = sum(np.sin(2 * np.pi * f0 * h * t) / h for h in range(1, 6))
+        env = 0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t)
+        return (0.1 * x * env + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
+
+    return [(voice(seconds, 110 + 20 * i), voice(10.0, 110 + 20 * i)) for i in range(n)]
+
+
+def medium_models(torch, dev):
+    """Whisper-medium TS encoder and decoder, bf16, seeded random weights."""
+    from robustsq_whisper_torch.init import init_params
+    from robustsq_whisper_torch.models import (
+        QFormerTSEncoder, TSDecoder, TSEncoderConfig, whisper_dims,
+    )
+
+    dims = whisper_dims("medium")
+    ts = TSEncoderConfig(
+        num_query_tokens=16, num_hidden_layers=2, use_flash_attention=True,
+        flash_tmaj=True, gelu_approx=True,
+    )
+    enc = init_params(QFormerTSEncoder(dims, ts), 0).to(dev, torch.bfloat16)
+    dec = init_params(TSDecoder(dims, cross_kv_bits=4, self_kv_bits=16), 1)
+    return dims, enc, dec.to(dev, torch.bfloat16)
+
+
+def serving_config(max_new: int, **cfg):
+    """The serving DecodeConfig: int4 cross K/V kernel, stop early."""
+    from robustsq_whisper_torch.decode.search import DecodeConfig
+    from robustsq_whisper_torch.tokenizer import special_tokens
+
+    st = special_tokens(multilingual=True)
+    return DecodeConfig(
+        max_new_tokens=max_new, eot=st.eot,
+        init_tokens=st.sot_sequence("en", "transcribe", True),
+        quantize_cross_kv=True, stop_early=True, **cfg,
+    )
+
+
+def engine_for(torch, dev, enc, dec, batch: int, max_new: int, **cfg):
+    from robustsq_whisper_torch.serve import EngineConfig, TranscriptionEngine
+    from robustsq_whisper_torch.tokenizer import ByteTokenizer
+
+    return TranscriptionEngine(
+        enc, dec, ByteTokenizer(), serving_config(max_new, **cfg),
+        EngineConfig(batch_size=batch, speech_seconds=30.0, enroll_seconds=10.0),
+        device=dev,
+    )
+
+
+def train_batch(torch, dev, b: int, vocab: int):
+    """b x (30 s speech, 10 s enrollment), 48 text tokens, every other row
+    a valid negative."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    return {
+        "speech": torch.randn(b, 30 * 16000, generator=g, device=dev) * 0.1,
+        "speech_lens": torch.full((b,), 30 * 16000, device=dev),
+        "enroll": torch.randn(b, 10 * 16000, generator=g, device=dev) * 0.1,
+        "enroll_lens": torch.full((b,), 10 * 16000, device=dev),
+        "text": torch.randint(0, vocab - 4, (b, 48), generator=g, device=dev),
+        "text_lens": torch.full((b,), 48, device=dev),
+        "neg_logits": torch.ones(b, b, device=dev),
+        "spk_labels": torch.randint(0, 1000, (b,), generator=g, device=dev),
+    }
 
 
 def agreement(a, b) -> float:
@@ -76,25 +198,24 @@ def check_rank_rows(torch, mesh, got, counts, alone, alone_counts, eot: int, pat
 
 def check_decode(torch, dev, n: int, one_card: bool, report: dict) -> None:
     """DP greedy and beam 5 (each rank's rows witnessed), TP greedy."""
-    import chip_smoke as cs
     import torch.distributed as dist
     from robustsq_whisper_torch.decode.pipeline import build_decode_fns
     from robustsq_whisper_torch.models import QFormerTSEncoder, TSDecoder
     from robustsq_whisper_torch.parallel.mesh import local_rows, make_mesh
 
-    dims, enc, dec = cs.medium_models(torch, dev)
+    dims, enc, dec = medium_models(torch, dev)
     batch, max_new = 4 * n, 32
-    staged = cs.engine_for(torch, dev, enc, dec, batch, max_new).stage(
-        cs.synthetic_pairs(batch, seed=0))
+    staged = engine_for(torch, dev, enc, dec, batch, max_new).stage(
+        synthetic_pairs(batch, seed=0))
     dp = make_mesh(n, 1)
-    for path, (cfg, expect) in cs.MESH_PATHS.items():
-        dcfg = cs.serving_config(max_new, **cfg)
+    for path, (cfg, expect) in MESH_PATHS.items():
+        dcfg = serving_config(max_new, **cfg)
         encode, run = build_decode_fns(enc, dec, dcfg, device=dev)
-        ref, ms_one, _ = timed(torch, lambda: run(*encode(*staged)))
+        ref, _ = warm_counted(torch, lambda: run(*encode(*staged)))
         mine = local_rows(staged, dp)
-        alone, _, alone_counts = timed(torch, lambda: run(*encode(*mine)))
+        alone, alone_counts = warm_counted(torch, lambda: run(*encode(*mine)))
         s_encode, s_run = build_decode_fns(enc, dec, dcfg, mesh=dp, device=dev)
-        got, ms_dp, counts = timed(torch, lambda: s_run(*s_encode(*staged)))
+        got, counts = warm_counted(torch, lambda: s_run(*s_encode(*staged)))
         if got[0].shape[0] != ref[0].shape[0]:
             raise AssertionError(f"DP {path}: tokens {tuple(got[0].shape)}, one device "
                                  f"{tuple(ref[0].shape)}")
@@ -106,8 +227,7 @@ def check_decode(torch, dev, n: int, one_card: bool, report: dict) -> None:
         dist.all_gather_object(launches, counts)
         width = min(got[0].shape[1], ref[0].shape[1])
         report[f"DP {path}"] = {
-            "mesh": [n, 1], "batch": batch, "ms": ms_dp, "one_device_ms": ms_one,
-            "rank_rows_equal_alone": True, "launches_by_rank": launches,
+            "mesh": [n, 1], "batch": batch, "rank_rows_equal_alone": True, "launches_by_rank": launches,
             "tokens_equal_whole_batch": agreement(got[0][:, :width], ref[0][:, :width]),
             "widths": [got[0].shape[1], ref[0].shape[1]]}
     if one_card:
@@ -120,16 +240,16 @@ def check_decode(torch, dev, n: int, one_card: bool, report: dict) -> None:
     t_dec = TSDecoder(dims, cross_kv_bits=4, flat_self_cache=False).to(dev, torch.bfloat16)
     t_dec.load_state_dict(dec.state_dict())
     del enc, dec
-    dcfg = dataclasses.replace(cs.serving_config(max_new), quantize_cross_kv=False)
+    dcfg = dataclasses.replace(serving_config(max_new), quantize_cross_kv=False)
     encode, run = build_decode_fns(t_enc.eval(), t_dec.eval(), dcfg, device=dev)
-    ref, ms_one, _ = timed(torch, lambda: run(*encode(*staged)))
+    ref, _ = warm_counted(torch, lambda: run(*encode(*staged)))
     tp = make_mesh(n // 2, 2)
     s_encode, s_run = build_decode_fns(t_enc, t_dec, dcfg, mesh=tp, device=dev)
-    got, ms_tp, _ = timed(torch, lambda: s_run(*s_encode(*staged)))
+    got, _ = warm_counted(torch, lambda: s_run(*s_encode(*staged)))
     if got[0].shape[0] != ref[0].shape[0]:
         raise AssertionError(f"TP greedy: tokens {tuple(got[0].shape)}")
     width = min(got[0].shape[1], ref[0].shape[1])
-    report["TP greedy (dense)"] = {"mesh": [n // 2, 2], "ms": ms_tp, "one_device_ms": ms_one,
+    report["TP greedy (dense)"] = {"mesh": [n // 2, 2],
                                    "tokens_equal": agreement(got[0][:, :width],
                                                              ref[0][:, :width])}
     del t_enc, t_dec
@@ -138,7 +258,6 @@ def check_decode(torch, dev, n: int, one_card: bool, report: dict) -> None:
 
 def check_training(torch, dev, n: int, one_card: bool, report: dict) -> None:
     """A DP lora step and an FSDP step against one device's."""
-    import chip_smoke as cs
     from robustsq_whisper_torch.init import init_params
     from robustsq_whisper_torch.models import TSASRModel, TSEncoderConfig, TSModelConfig
     from robustsq_whisper_torch.models import whisper_dims
@@ -149,7 +268,7 @@ def check_training(torch, dev, n: int, one_card: bool, report: dict) -> None:
 
     dims = whisper_dims("medium")
     ts = TSEncoderConfig(use_flash_attention=True, remat=True)
-    batch = cs.train_batch(torch, dev, cs.TRAIN_B, dims.n_vocab)
+    batch = train_batch(torch, dev, TRAIN_B, dims.n_vocab)
     moments = {"lora": "float32", "full": "bfloat16"}
     # one model for every step, its weights restored before each; the
     # FSDP step shards it in place and comes last
@@ -169,10 +288,10 @@ def check_training(torch, dev, n: int, one_card: bool, report: dict) -> None:
         gen = torch.Generator(device=dev).manual_seed(0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        (_, stats), wall, counts = cs.counted(torch, lambda: step(state, batch, gen, 0))
-        out = dict(ms=wall * 1e3, loss=stats["loss"].item(), grad_norm=stats["grad_norm"].item(),
+        (_, stats), counts = counted(torch, lambda: step(state, batch, gen, 0))
+        out = dict(loss=stats["loss"].item(), grad_norm=stats["grad_norm"].item(),
                    peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
-                   launches={k: counts[k] for k in cs.TRAIN_KERNELS})
+                   launches={k: counts[k] for k in TRAIN_KERNELS})
         del state, step
         torch.cuda.empty_cache()
         return out
@@ -184,12 +303,12 @@ def check_training(torch, dev, n: int, one_card: bool, report: dict) -> None:
         one, got = one_device[mode], step_once(mode, make_mesh(n, 1), fsdp)
         err = {k: abs(got[k] - one[k]) / abs(one[k]) for k in STEP_RTOL}
         name = f"{'FSDP' if fsdp else 'DP'} {mode} step"
-        report[name] = {"mesh": [n, 1], "batch": cs.TRAIN_B, **got, "one_device": one,
+        report[name] = {"mesh": [n, 1], "batch": TRAIN_B, **got, "one_device": one,
                         "rel_err": err}
         if any(err[k] > tol for k, tol in STEP_RTOL.items()):
             raise AssertionError(f"{name}: {got} against one device's {one}, bars {STEP_RTOL}")
-        if got["launches"] != cs.TRAIN_KERNELS:
-            raise AssertionError(f"{name}: launches {got['launches']}, want {cs.TRAIN_KERNELS}")
+        if got["launches"] != TRAIN_KERNELS:
+            raise AssertionError(f"{name}: launches {got['launches']}, want {TRAIN_KERNELS}")
 
 
 def main(argv) -> int:
@@ -209,16 +328,12 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0) if one_card else local_device("cuda")
     report: dict = {"world": n, "backend": torch.distributed.get_backend(),
                     "one_card": one_card}
-    t0 = time.perf_counter()
     check_decode(torch, dev, n, one_card, report)
     check_training(torch, dev, n, one_card, report)
-    report["total_s"] = time.perf_counter() - t0
     first = rank() == 0
     torch.distributed.destroy_process_group()
     if first:
-        import chip_smoke as cs
-
-        print(cs.gpu_info())
+        print(gpu_info())
         print(json.dumps(report))
     return 0
 

@@ -131,11 +131,13 @@ def build_decode_fns(
     expects; ``run(memory, spk_prompt)`` returns (tokens, scores[, stats]);
     the joint decoder's is ``run(memory, spk_prompt, mem_lens)``.
     ``ctc_lo``: the CTC head's (weight, bias), which joint decode needs.
-    Moves the modules to ``device``. On a ``mesh`` ``encode`` takes the
-    whole batch and returns this rank's rows, ``run`` takes those and
-    returns the whole batch's; ``enc_chunk`` then sub-batches the encoder
-    inside ``encode`` (decode/sharded.py). A tensor-parallel mesh shards
-    the modules in place."""
+    ``encode`` runs the encoder in sub-batches of ``enc_chunk`` rows
+    (``chunked_encode``; 0 for one call), bounding its activation peak
+    apart from the decode batch. Moves the modules to ``device``. On a
+    ``mesh`` ``encode`` takes the whole batch and returns this rank's rows,
+    in sub-batches of ``enc_chunk`` over the data axis (decode/sharded.py),
+    and ``run`` takes those and returns the whole batch's. A
+    tensor-parallel mesh shards the modules in place."""
     if draft is not None and not (
         dcfg.speculative_gamma > 0 and mesh is None and dcfg.ctc_decode_weight == 0
     ):
@@ -191,17 +193,19 @@ def build_decode_fns(
         run = build_beam_decoder(decoder, dcfg, dev)
     encoder.to(dev).eval()
     if emb:
-        @torch.inference_mode()
-        def encode(mel, flens, enroll_embed):
+        def encode_rows(mel, flens, enroll_embed):
             memory, _ = encoder(mel.to(dev), flens.to(dev), enroll_embed.to(dev))
             return memory, memory.new_zeros((memory.shape[0], 0, memory.shape[-1]))
     else:
-        @torch.inference_mode()
-        def encode(mel, flens, emel, elens):
+        def encode_rows(mel, flens, emel, elens):
             memory, _, spk_prompt, _ = encoder(
                 mel.to(dev), flens.to(dev), emel.to(dev), elens.to(dev)
             )
             return memory, spk_prompt
+
+    @torch.inference_mode()
+    def encode(*args):
+        return chunked_encode(encode_rows, args, enc_chunk)
 
     return encode, run
 
@@ -252,9 +256,6 @@ def decode_dataset(
         encoder, decoder, dcfg, mesh=mesh, device=dev, draft=draft, ctc_lo=ctc_lo,
         enc_chunk=enc_chunk,
     )
-    # a sharded encode sub-batches inside (build_decode_fns)
-    sharded = axis_size(mesh, DATA_AXIS) * axis_size(mesh, MODEL_AXIS) > 1
-    outer_chunk = 0 if sharded else enc_chunk
 
     hyps: Dict[str, str] = {}
     refs: Dict[str, str] = {}
@@ -295,7 +296,7 @@ def decode_dataset(
                 enroll = ((torch.from_numpy(batch["enroll_embed"]),) if emb
                           else pcm16_log_mel(batch["enroll"], batch["enroll_lens"], n_mels, dev))
             with annotate("rsq:decode.encode"):
-                memory, spk_prompt = chunked_encode(encode, (feats, feats_lens, *enroll), outer_chunk)
+                memory, spk_prompt = encode(feats, feats_lens, *enroll)
             with annotate("rsq:decode.search"):
                 if dcfg.ctc_decode_weight > 0:
                     # encoder lengths with the prompt frames, as the encoder's

@@ -15,7 +15,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -133,15 +132,6 @@ def load(name: str, entry: str = ""):
             fn.restype = ctypes.c_int
         _loaded[name] = lib
     return getattr(lib, entry or ENTRIES.get(name, (name,))[0])
-
-
-def build_all():
-    """Build and load every kernel; returns (wall seconds, ptxas reports)."""
-    t0 = time.perf_counter()
-    reports = build(KERNELS)
-    for name in KERNELS:
-        load(name)
-    return time.perf_counter() - t0, reports
 
 
 def check(err: int, name: str) -> None:

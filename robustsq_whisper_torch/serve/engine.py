@@ -3,14 +3,15 @@
 Mirrors the JAX package's ``serve/engine.py``: one (encode, run) program
 pair from ``build_decode_fns``, driven at a fixed batch size. Short
 requests are zero-padded into the static window; unused batch rows repeat
-row 0 and are dropped on the host. Audio is staged to the device as int16
-by default (half the bytes of f32, exact for WAV/FLAC-sourced audio). A
-DecodeConfig with ``speculative_gamma > 0`` serves by speculative greedy
-decode, self-drafting or with a separate ``draft`` decoder (the JAX
-engine's ``draft_vars``): a distilled one (``train/distill.py``,
-``cli.serve --draft_path``) or a converted JAX draft. It serves audio
-enrollment (the Qformer encoder), as the JAX engine does; embedding
-enrollment decodes through ``cli.decode``.
+row 0 and are dropped on the host. Audio is staged as the decode jobs stage
+it, through ``audio/frontend.py::pcm16_log_mel``: copied to the device
+through pinned memory and quantized to int16's grid there (exact for
+WAV/FLAC-sourced audio). A DecodeConfig with ``speculative_gamma > 0``
+serves by speculative greedy decode, self-drafting or with a separate
+``draft`` decoder (the JAX engine's ``draft_vars``): a distilled one
+(``train/distill.py``, ``cli.serve --draft_path``) or a converted JAX
+draft. It serves audio enrollment (the Qformer encoder), as the JAX engine
+does; embedding enrollment decodes through ``cli.decode``.
 
 On a ``mesh`` (``parallel/mesh.py``; one process per GPU) the engine of
 rank 0 takes the requests; before it runs a staged batch it broadcasts it
@@ -36,8 +37,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..audio.frontend import log_mel_spectrogram, pcm16_to_float, to_pcm16
-from ..decode.pipeline import build_decode_fns, chunked_encode
+from ..audio.frontend import pcm16_log_mel
+from ..decode.pipeline import build_decode_fns
 from ..decode.search import DecodeConfig, strip_eot
 from ..models.ts_encoder import QFormerTSEncoder
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_size, world_size
@@ -53,7 +54,6 @@ class EngineConfig:
     enroll_seconds: float = 10.0
     sample_rate: int = 16000
     enc_chunk: int = 0  # encoder sub-batching (chunked_encode); 0 = off
-    transport: str = "int16"  # or "float32"
 
 
 class TranscriptionEngine:
@@ -72,8 +72,6 @@ class TranscriptionEngine:
         draft: Optional[Any] = None,
         device="cuda",
     ) -> None:
-        if cfg.transport not in ("int16", "float32"):
-            raise ValueError(f"unknown transport {cfg.transport!r}")
         if not isinstance(encoder, QFormerTSEncoder):
             raise ValueError("the engine serves (speech, enrollment audio) pairs through the "
                              "Qformer encoder; embedding enrollment decodes with cli.decode")
@@ -82,14 +80,13 @@ class TranscriptionEngine:
         self.dcfg = dcfg
         self.tokenizer = tokenizer
         self.n_mels = encoder.dims.n_mels
-        self.sharded = axis_size(mesh, DATA_AXIS) * axis_size(mesh, MODEL_AXIS) > 1
-        if self.sharded and cfg.batch_size % axis_size(mesh, DATA_AXIS):
+        sharded = axis_size(mesh, DATA_AXIS) * axis_size(mesh, MODEL_AXIS) > 1
+        if sharded and cfg.batch_size % axis_size(mesh, DATA_AXIS):
             raise ValueError(f"batch_size {cfg.batch_size} must be a multiple of the "
                              f"data-axis size ({axis_size(mesh, DATA_AXIS)})")
-        # a sharded encode sub-batches its own rows
         self.encode, self.run = build_decode_fns(
             encoder, decoder, dcfg, mesh, device=self.device, draft=draft,
-            enc_chunk=cfg.enc_chunk if self.sharded else 0,
+            enc_chunk=cfg.enc_chunk,
         )
         self.followers = world_size() > 1 and mesh is not None
         if self.followers:  # every rank builds its engine: a collective call
@@ -108,11 +105,9 @@ class TranscriptionEngine:
     def _fit(self, audio: np.ndarray, seconds: float) -> Tuple[np.ndarray, int]:
         """Zero-pad/crop to the static window; returns (row, true_len)."""
         n = int(round(seconds * self.cfg.sample_rate))
-        i16 = self.cfg.transport == "int16"
-        row = np.zeros((n,), np.int16 if i16 else np.float32)
+        row = np.zeros((n,), np.float32)
         ln = min(len(audio), n)
-        clip = np.asarray(audio[:ln], np.float32)
-        row[:ln] = to_pcm16(clip) if i16 else clip
+        row[:ln] = audio[:ln]
         return row, ln
 
     def _pack(self, items: Sequence[Tuple[np.ndarray, np.ndarray]]):
@@ -121,9 +116,8 @@ class TranscriptionEngine:
             raise ValueError(f"1..{b} items required, got {len(items)}")
         s_len = int(round(self.cfg.speech_seconds * self.cfg.sample_rate))
         e_len = int(round(self.cfg.enroll_seconds * self.cfg.sample_rate))
-        wire = np.int16 if self.cfg.transport == "int16" else np.float32
-        speech = np.zeros((b, s_len), wire)
-        enroll = np.zeros((b, e_len), wire)
+        speech = np.zeros((b, s_len), np.float32)
+        enroll = np.zeros((b, e_len), np.float32)
         slens = np.zeros((b,), np.int32)
         elens = np.zeros((b,), np.int32)
         for i, (sp, en) in enumerate(items):
@@ -137,21 +131,13 @@ class TranscriptionEngine:
     # ---- inference ----
 
     def stage(self, items: Sequence[Tuple[np.ndarray, np.ndarray]]):
-        """Host pack + device transfer + log-mel. Returns device-resident
-        (feats, flens, efeats, eflens)."""
+        """Host pack, then ``pcm16_log_mel`` of the speech and of the
+        enrollments. Returns device-resident (feats, flens, efeats,
+        eflens)."""
         speech, slens, enroll, elens = self._pack(items)
-        dev = self.device
         with self._stage_lock, torch.inference_mode():
-            s_dev = torch.from_numpy(speech).to(dev)
-            e_dev = torch.from_numpy(enroll).to(dev)
-            if self.cfg.transport == "int16":
-                s_dev, e_dev = pcm16_to_float(s_dev), pcm16_to_float(e_dev)
-            feats, flens = log_mel_spectrogram(
-                s_dev, torch.from_numpy(slens).to(dev), n_mels=self.n_mels
-            )
-            efeats, eflens = log_mel_spectrogram(
-                e_dev, torch.from_numpy(elens).to(dev), n_mels=self.n_mels
-            )
+            feats, flens = pcm16_log_mel(speech, slens, self.n_mels, self.device)
+            efeats, eflens = pcm16_log_mel(enroll, elens, self.n_mels, self.device)
         return feats, flens, efeats, eflens
 
     def infer_staged(self, staged: Tuple, n_items: int) -> List[str]:
@@ -166,10 +152,8 @@ class TranscriptionEngine:
         return [self.tokenizer.decode(r).strip() for r in rows]
 
     def _infer(self, staged: Tuple) -> torch.Tensor:
-        chunk = 0 if self.sharded else self.cfg.enc_chunk
         with torch.inference_mode():
-            memory, spk_prompt = chunked_encode(self.encode, staged, chunk)
-            return self.run(memory, spk_prompt)[0]
+            return self.run(*self.encode(*staged))[0]
 
     # ---- the other ranks of a mesh ----
 

@@ -8,9 +8,7 @@
 - ``annotate``: a span of the program, named ``rsq:<layer>.<phase>``: a
   ``record_function`` range while a ``torch.profiler`` capture records, so
   it lands in the same trace and on the same clock as the card's kernels;
-  otherwise one flag read and a shared null context;
-- ``op_stats`` / ``top_ops``: time and calls per event name from the newest
-  trace, per profiled run (the device kernels by default).
+  otherwise one flag read and a shared null context.
 
 The spans: ``decode/pipeline.py::decode_dataset`` opens
 ``rsq:decode.frontend`` (``audio/frontend.py::pcm16_log_mel`` opens
@@ -28,13 +26,10 @@ host's read of the stop flag; greedy's may wait on the device there, see
 from __future__ import annotations
 
 import contextlib
-import glob
-import json
 import logging
 import os
 import time
-from collections import defaultdict
-from typing import ContextManager, Dict, Iterator, Optional
+from typing import ContextManager, Iterator, Optional
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
@@ -80,39 +75,3 @@ def annotate(name: str) -> ContextManager:
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return _autograd_profiler.record_function(name)
-
-
-def op_stats(
-    trace_dir: str, runs: int = 1, category: str = "kernel"
-) -> Dict[str, Dict[str, float]]:
-    """``{name: {"ms": total_ms / runs, "count": calls / runs}}`` over the
-    complete events of category ``category`` in the newest chrome trace
-    under ``trace_dir`` (``trace``'s, or any ``export_chrome_trace``).
-    ``"kernel"`` (the default) is the card's kernels, the counterpart of
-    the JAX package's device-op lines; ``"cpu_op"`` the host's operators.
-    ``runs`` divides the totals by the profiled iterations, so they read
-    per run. Host events nest, so their sum can exceed the wall time."""
-    paths = glob.glob(os.path.join(trace_dir, "**", "*.json"), recursive=True)
-    if not paths:
-        raise FileNotFoundError(f"no chrome trace (*.json) under {trace_dir}")
-    with open(max(paths, key=os.path.getmtime)) as f:
-        events = json.load(f)["traceEvents"]
-    out: Dict[str, Dict[str, float]] = defaultdict(lambda: {"ms": 0.0, "count": 0.0})
-    for e in events:
-        if e.get("ph") != "X" or e.get("cat") != category:
-            continue
-        rec = out[e["name"]]
-        rec["ms"] += e.get("dur", 0.0) / 1e3 / max(runs, 1)
-        rec["count"] += 1.0 / max(runs, 1)
-    return dict(out)
-
-
-def top_ops(stats: Dict[str, Dict[str, float]], n: int = 25) -> str:
-    """Human-readable table of the ``n`` most expensive ops from
-    :func:`op_stats`, sorted by total busy ms."""
-    rows = sorted(stats.items(), key=lambda kv: -kv[1]["ms"])[:n]
-    return "\n".join(
-        f"{r['ms']:9.2f} ms  x{r['count']:<6.0f} {name[:100]}"
-        for name, r in rows
-    )
-

@@ -189,6 +189,34 @@ def test_serve_takes_int8_weights(trained, monkeypatch):
     assert len(texts) == 1 and isinstance(texts[0], str) and calls
 
 
+def test_serve_takes_a_draft(trained, drafts):
+    """``cli.serve --speculative_gamma 2 --draft_path`` builds an engine
+    that decodes speculatively with the distilled draft and serves the
+    greedy engine's text, token for token (the speculative contract)."""
+    import numpy as np
+
+    from robustsq_whisper_torch.cli import serve as pserve
+
+    def engine(*extra):
+        return pserve.build_engine(pserve.parse_args([
+            "--config", trained["config"], "--inference_config", BEAM1, "--expdir",
+            trained["pexp"], "--tokenizer_assets", RANKS, "--batch_size", "2",
+            "--device", "cpu", *extra]))[0]
+
+    spec = engine("--speculative_gamma", "2", "--draft_path", drafts["copy"])
+    greedy = engine()
+    assert spec.dcfg.speculative_gamma == 2 and greedy.dcfg.speculative_gamma == 0
+    rng = np.random.default_rng(1)
+    pairs = [tuple((rng.standard_normal(int(s * 16000)) * 0.1).astype(np.float32)
+                   for s in (1.0 + 0.5 * i, 0.5)) for i in range(2)]
+    with torch.inference_mode():
+        staged = spec.stage(pairs)
+        stats = spec.run(*spec.encode(*staged))[2]
+    assert int(stats["chunks"].sum()) > 0
+    texts = spec.transcribe(pairs)
+    assert texts == greedy.transcribe(pairs) and all(texts)
+
+
 def test_distill_equals_jax_cli(drafts):
     """The port's ``cli.distill`` on the checkpoint JAX distilled from: the
     same corpus and meta (the checkpoint's own path aside; the loss to

@@ -72,8 +72,9 @@ F32_TOL = dict(rtol=1e-4, atol=1e-4)  # exp2f/__expf vs torch.exp
 # 1500, 1516: 8- and 16-byte words along T
 @pytest.mark.parametrize("t_len", [1, 63, 64, 65, 129, 256, 301, 1500, 1516])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-# 640: an encoder chunk of 32 utterances x 20 heads (large-v3-turbo)
-@pytest.mark.parametrize("bh", [6, 640])
+# 64: Whisper-medium's encoder at batch 4 x 16 heads; 640: an encoder chunk
+# of 32 utterances x 20 heads (large-v3-turbo)
+@pytest.mark.parametrize("bh", [6, 64, 640])
 def test_flash_tmaj_kernel_matches_plain(cuda, t_len, dtype, bh):
     """Against the plain version in f32 on the same (bf16-valued) inputs:
     a bf16 output is off by its own rounding and that of P (2^-9 each)."""
@@ -91,24 +92,30 @@ def test_flash_tmaj_kernel_matches_plain(cuda, t_len, dtype, bh):
     torch.testing.assert_close(got.float(), ref, **tol)
 
 
+# (layers, batch, heads, layer read): a small stack, and Whisper-medium's
+# 24 layers at batch 4 x 16 heads read at layer 7
+CROSS_STACKS = [(3, 2, 2, 2), (24, 4, 16, 7)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("layers,b,h,layer", CROSS_STACKS)
 @pytest.mark.parametrize("mode", ["int4", "int8", "fp"])
-def test_decode_cross_kernel_matches_plain(cuda, mode):
-    q, k_s, kt, vt = _cross_inputs(3, mode)
+def test_decode_cross_kernel_matches_plain(cuda, mode, layers, b, h, layer):
+    q, k_s, kt, vt = _cross_inputs(3, mode, layers, b, h)
     args = [torch.from_numpy(x).to(cuda) for x in (q, kt, vt, k_s)]
     kv_len = torch.tensor(1516, dtype=torch.int32, device=cuda)
-    layer = torch.tensor(2, dtype=torch.int32, device=cuda)
-    kw = dict(kv_len=kv_len, layer_idx=layer, packed_int4=mode == "int4")
+    li = torch.tensor(layer, dtype=torch.int32, device=cuda)
+    kw = dict(kv_len=kv_len, layer_idx=li, packed_int4=mode == "int4")
     got = tdec.decode_cross_attention(*args, **kw)
     torch.cuda.synchronize()
     cpu = [a.cpu() for a in args]
     ref = tdec.decode_cross_attention(
-        *cpu, kv_len=1516, layer_idx=2, packed_int4=mode == "int4"
+        *cpu, kv_len=1516, layer_idx=layer, packed_int4=mode == "int4"
     )
     torch.testing.assert_close(got.cpu(), ref, **F32_TOL)
     # host ints for kv_len / layer_idx are copied to the card
     again = tdec.decode_cross_attention(
-        *args, kv_len=1516, layer_idx=2, packed_int4=mode == "int4"
+        *args, kv_len=1516, layer_idx=layer, packed_int4=mode == "int4"
     )
     assert torch.equal(again, got)
 
@@ -281,36 +288,43 @@ def test_decode_self_kernel_matches_plain(cuda, pos, rows, heads, t_pad, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layers,b,h,layer", CROSS_STACKS)
 @pytest.mark.parametrize("group", [3, 5, 10])  # 10: two launches of 8 and 2
 @pytest.mark.parametrize("mode", ["int4", "int8", "fp"])
-def test_grouped_decode_cross_kernel_matches_plain(cuda, mode, group):
-    q, k_s, kt, vt = _cross_inputs(group, mode)
+def test_grouped_decode_cross_kernel_matches_plain(cuda, mode, group, layers, b, h, layer):
+    q, k_s, kt, vt = _cross_inputs(group, mode, layers, b, h)
     q = np.stack([q * (1.0 + 0.1 * j) for j in range(group)], axis=2)
     args = [torch.from_numpy(x).to(cuda) for x in (q, kt, vt, k_s)]
     kw = dict(packed_int4=mode == "int4", group=group)
     n = tdec.decode_cross_attention.grouped_launches
-    got = tdec.decode_cross_attention(*args, kv_len=1516, layer_idx=2, **kw)
+    got = tdec.decode_cross_attention(*args, kv_len=1516, layer_idx=layer, **kw)
     torch.cuda.synchronize()
     assert tdec.decode_cross_attention.grouped_launches == n + (2 if group > 8 else 1)
     ref = tdec.decode_cross_attention(
-        *[a.cpu() for a in args], kv_len=1516, layer_idx=2, **kw
+        *[a.cpu() for a in args], kv_len=1516, layer_idx=layer, **kw
     )
     assert got.shape == ref.shape == q.shape
     torch.testing.assert_close(got.cpu(), ref, **F32_TOL)
 
 
+# (live, src, layers, T, width): a small cache over each source map, and
+# the beam-5 main path's last step at Whisper-medium (batch 4 x 5 beams, 24
+# layers, 51 of 56 positions live, n_state 1024)
+REORDER_CASES = [
+    (live, src, 3, 40, 256) for live in (0, 9, 40)
+    for src in ([3, 0, 0, 5, 2, 1], [5, 4, 3, 2, 1, 0], list(range(319, -1, -1)))
+] + [(51, [3, 3, 0, 19, 19, 7, 12, 12, 1, 5, 5, 18, 2, 2, 9, 14, 14, 4, 11, 6], 24, 56, 1024)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("live", [0, 9, 40])
-@pytest.mark.parametrize(
-    "src", [[3, 0, 0, 5, 2, 1], [5, 4, 3, 2, 1, 0], list(range(319, -1, -1))]
-)
-def test_beam_reorder_kernel_matches_plain(cuda, live, src):
+@pytest.mark.parametrize("live,src,layers,t_len,width", REORDER_CASES)
+def test_beam_reorder_kernel_matches_plain(cuda, live, src, layers, t_len, width):
     """A bf16 K/V pair (one launch) and an int8 and an f32 leaf, every
     position non-zero: the live chunks are permuted exactly, the tail kept.
     320 rows tile the row payload into slices of several blocks."""
     rows = len(src)
     g = torch.Generator(device=cuda).manual_seed(live)
-    shape = (3, rows, 40, 256)
+    shape = (layers, rows, t_len, width)
     leaves = [
         torch.randn(shape, generator=g, device=cuda).bfloat16(),
         torch.randn(shape, generator=g, device=cuda).bfloat16(),
@@ -320,14 +334,14 @@ def test_beam_reorder_kernel_matches_plain(cuda, live, src):
     before = [x.cpu() for x in leaves]
     src_rows = torch.tensor(src, dtype=torch.int32)
     n = tbg.beam_reorder_cache.launches
-    out = tbg.beam_reorder_cache(leaves, src_rows.to(cuda), live=live, time_len=40)
+    out = tbg.beam_reorder_cache(leaves, src_rows.to(cuda), live=live, time_len=t_len)
     torch.cuda.synchronize()
     assert tbg.beam_reorder_cache.launches == n + 3
     assert all(o is x for o, x in zip(out, leaves))  # in place
     ref = tbg.beam_reorder_cache(
-        [x.clone() for x in before], src_rows, live=live, time_len=40
+        [x.clone() for x in before], src_rows, live=live, time_len=t_len
     )
-    p = tbg.live_positions(live, 40)
+    p = tbg.live_positions(live, t_len)
     for o, r, x in zip(out, ref, before):
         assert torch.equal(o.cpu(), r)
         assert torch.equal(r[:, :, p:], x[:, :, p:])  # the tail is kept
@@ -409,11 +423,17 @@ def _tmin_inputs(cuda, seed, layers=2, b=3, heads=4, t_pad=256, dtype=torch.bflo
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kv_len", [0, 1, 130, 256])
-def test_decode_cross_state_kernel_matches_plain(cuda, kv_len):
+# (kv_len, layers, batch, heads, T_pad): a small cache at its edges, and the
+# greedy path's last step at Whisper-medium (24 layers, batch 4 x 16 heads,
+# 52 of 128 positions)
+@pytest.mark.parametrize("kv_len,layers,b,heads,t_pad", [
+    (0, 2, 3, 4, 256), (1, 2, 3, 4, 256), (130, 2, 3, 4, 256), (256, 2, 3, 4, 256),
+    (52, 24, 4, 16, 128),
+])
+def test_decode_cross_state_kernel_matches_plain(cuda, kv_len, layers, b, heads, t_pad):
     """return_state over the stacked dense time-minor cache: the f32 output
     and (m, l); kv_len = 0 is the all-masked state (-1e30, 0, 0)."""
-    q, _, _, kc, vc = _tmin_inputs(cuda, kv_len)
+    q, _, _, kc, vc = _tmin_inputs(cuda, kv_len, layers, b, heads, t_pad)
     n = tdec.decode_cross_attention.state_launches
     got = tdec.decode_cross_attention(q, kc, vc, kv_len=kv_len, layer_idx=1,
                                       return_state=True)
@@ -443,34 +463,46 @@ def test_decode_self_tmin_matches_plain(cuda, pos):
         assert torch.equal(got, vn)
 
 
+# (live, src, layers, T, heads, int8 leaves): 18 rows of a small 5-D cache
+# with its int8 leaf and scales, and the bf16 5-D cache of the beam-5 main
+# path's last step at Whisper-medium (batch 4 x 5 beams, 24 layers, 51 of
+# 56 positions, 16 heads)
+FLAT_REORDER_CASES = [
+    (live, [3, 0, 0, 5, 2, 1] * 3, 3, 128, 4, True) for live in (0, 1, 20, 31, 32, 33, 128)
+] + [(51, [3, 3, 0, 19, 19, 7, 12, 12, 1, 5, 5, 18, 2, 2, 9, 14, 14, 4, 11, 6], 24, 56, 16,
+      False)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("live", [0, 1, 20, 31, 32, 33, 128])
-def test_flattened_beam_reorder_kernel_matches_plain(cuda, live):
+@pytest.mark.parametrize("live,src,layers,t_len,heads,int8", FLAT_REORDER_CASES)
+def test_flattened_beam_reorder_kernel_matches_plain(cuda, live, src, layers, t_len, heads,
+                                                     int8):
     """5-D bf16 K/V (one launch), a 5-D int8 and an f32 scale leaf, every
     position non-zero: the live chunks move, the tail is written as zeros,
     the inputs are untouched. live below one chunk (1, 20, 31) moves one."""
     g = torch.Generator(device=cuda).manual_seed(live)
-    src = torch.tensor([3, 0, 0, 5, 2, 1] * 3, device=cuda)
+    src = torch.tensor(src, device=cuda)
     rows = src.numel()
-    five = (3, rows, 128, 4, 64)
+    five = (layers, rows, t_len, heads, 64)
     leaves = (
         torch.randn(five, generator=g, device=cuda).bfloat16(),
         torch.randn(five, generator=g, device=cuda).bfloat16(),
+    ) + ((
         torch.randint(-127, 128, five, generator=g, device=cuda).to(torch.int8),
-        torch.rand((3, rows, 128, 32), generator=g, device=cuda) + 0.5,
-    )
+        torch.rand((layers, rows, t_len, 32), generator=g, device=cuda) + 0.5,
+    ) if int8 else ())
     before = [x.clone() for x in leaves]
     n = tbg.beam_reorder_cache.flat_launches
-    out = tbg.beam_reorder_cache(leaves, src, live=live, time_len=128)
+    out = tbg.beam_reorder_cache(leaves, src, live=live, time_len=t_len)
     torch.cuda.synchronize()
-    assert tbg.beam_reorder_cache.flat_launches == n + 3
+    assert tbg.beam_reorder_cache.flat_launches == n + (3 if int8 else 1)
     ref = tbg.beam_reorder_cache(tuple(x.cpu() for x in before), src.cpu(),
-                                 live=live, time_len=128)
+                                 live=live, time_len=t_len)
     for o, r, x, b in zip(out, ref, leaves, before):
         assert o is not x and torch.equal(x, b)
         assert torch.equal(o.cpu(), r)
-        e = tbg.live_rows(live, x.numel() // (3 * rows * 128), 128) * 128
-        assert not o.reshape(3, rows, -1)[:, :, e:].any()
+        e = tbg.live_rows(live, x.numel() // (layers * rows * 128), t_len) * 128
+        assert not o.reshape(layers, rows, -1)[:, :, e:].any()
 
 
 @pytest.mark.cuda
@@ -561,6 +593,9 @@ FLASH_CASES = [  # (b, q_len, kv_len, heads, mask)
     (2, 256, 256, 3, None), (2, 301, 301, 2, None), (1, 75, 130, 2, None),
     (2, 160, 160, 2, "padding"), (1, 192, 192, 2, "causal"), (8, 1516, 1516, 2, None),
     (2, 333, 270, 3, "padding"),  # masked, q_len != kv_len, three query blocks
+    # Whisper-medium's training shape (batch 8 x 16 heads over 1500 frames
+    # and 16 queries), and a masked one of 4 heads
+    (8, 1516, 1516, 16, None), (2, 301, 301, 4, "padding"),
 ]
 
 
@@ -740,6 +775,12 @@ W8A8_SHAPES = [
     (128, 1024, 256), (129, 16, 72), (700, 1040, 1000), (6064, 1024, 1024),
     (6064, 4096, 1024), (300, 1024, 4100), (64, 8192, 100), (4, 8208, 64),
     (44, 1024, 4096), (33, 2048, 4100),
+    # the rest of the Whisper-medium step at 4, 20 and 44 rows and of its
+    # encoder at 4 x 1516, and more edges: 64 | 65 rows at N 1000, K 4096 at
+    # 129 rows, K 48 at 44, K 1040 at 17 and 6064 rows
+    (4, 1024, 4096), (4, 4096, 1024), (20, 1024, 1024), (20, 1024, 51865),
+    (44, 1024, 1024), (6064, 1024, 4096), (65, 1024, 1000), (129, 4096, 200),
+    (700, 1024, 1000), (44, 48, 33), (17, 1040, 129), (6064, 1040, 136),
 ]
 
 

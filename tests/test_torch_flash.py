@@ -209,7 +209,7 @@ def test_w8a8_large_m_path_launches_a_wgmma_s8_kernel():
 def test_load_declares_every_entry_of_a_library(tmp_path, monkeypatch):
     """A library with several C entry points (the two backward kernels)
     loads once, declares each entry's signature and returns its first entry
-    by default (as build_all loads every library by name)."""
+    by default (as a wrapper loads its library by name)."""
     class Fn:
         pass
 

@@ -26,13 +26,13 @@ PORT = REPO / "robustsq_whisper_torch"
 
 
 def test_port_never_imports_jax():
-    """Importing every port module (and chip_smoke.py) loads no JAX."""
+    """Importing every port module (and multi_gpu_check.py) loads no JAX."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import robustsq_whisper_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
+        "import multi_gpu_check\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'robustsq_whisper_tpu')]\n"
         "print(bad)\n"
@@ -53,11 +53,11 @@ def test_port_sources_never_name_the_jax_package():
         text = f.read_text()
         assert "robustsq_whisper_tpu" not in text, f
         assert "import jax" not in text and "from jax" not in text, f
-    # chip_smoke.py names the TPU kernels it replaces, but imports none
-    smoke = (REPO / "chip_smoke.py").read_text()
-    assert "import jax" not in smoke and "from jax" not in smoke
-    assert "import robustsq_whisper_tpu" not in smoke
-    assert "from robustsq_whisper_tpu" not in smoke
+    # nor does the multi-GPU check beside the package
+    check = (REPO / "multi_gpu_check.py").read_text()
+    assert "import jax" not in check and "from jax" not in check
+    assert "import robustsq_whisper_tpu" not in check
+    assert "from robustsq_whisper_tpu" not in check
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

@@ -4,7 +4,10 @@ The tiny model of ``tests/test_serve.py`` (flax init, converted with
 ``convert.load_flax``): concurrent ``POST /v1/transcribe`` requests with
 base64 WAV bodies must return the JAX engine's texts for the same audio;
 unknown paths give 404 and oversized bodies 413; the admission bound sheds
-with 503 and ``close()`` fails what is still queued."""
+with 503 and ``close()`` fails what is still queued. The engine stages
+its batches with the decode jobs' frontend, and both sub-batch the encoder
+through ``build_decode_fns``; a tiny port model with timestamp tokens
+decodes a data set through ``decode_dataset``."""
 
 import base64
 import io
@@ -17,6 +20,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -29,8 +33,11 @@ from robustsq_whisper_tpu.models import WhisperDims as JDims
 from robustsq_whisper_tpu.serve import EngineConfig as JEngineConfig
 from robustsq_whisper_tpu.serve import TranscriptionEngine as JEngine
 from robustsq_whisper_tpu.tokenizer.whisper_tokenizer import load_tokenizer as jload
+from robustsq_whisper_torch.audio import frontend as tfront
 from robustsq_whisper_torch.convert import load_flax
+from robustsq_whisper_torch.decode.pipeline import decode_dataset
 from robustsq_whisper_torch.decode.search import DecodeConfig
+from robustsq_whisper_torch.init import init_params
 from robustsq_whisper_torch.models import QFormerTSEncoder, TSDecoder, TSEncoderConfig, WhisperDims
 from robustsq_whisper_torch.serve import EngineConfig, MicroBatcher, TranscriptionEngine
 from robustsq_whisper_torch.serve import audio_from_bytes, make_server
@@ -247,3 +254,122 @@ def test_audio_from_bytes_round_trip():
         audio_from_bytes(flac, 8000)
     with pytest.raises(IOError, match="cannot parse"):
         audio_from_bytes(b"fLaC" + bytes(32), SR)
+
+
+def test_stage_is_the_host_pcm16_frontend(engines):
+    """``stage()`` packs float rows (padded and cropped to the windows,
+    spare rows repeating row 0) and sends them through ``pcm16_log_mel``:
+    features and frame counts bit for bit those of the host int16 path."""
+    peng, _ = engines
+    speech = [_wav(1, 0.1), _wav(2, 0.5), _wav(3, 0.32)]  # short, long, full
+    speech[0][7] = 1.5  # beyond full scale: int16 saturates
+    speech[1][5] = -1.25
+    enroll = [_wav(4, 0.05), _wav(5, 0.3), _wav(6, 0.2)]
+    staged = peng.stage(list(zip(speech, enroll)))
+    for k, (waves, seconds) in enumerate(((speech, ECFG["speech_seconds"]),
+                                          (enroll, ECFG["enroll_seconds"]))):
+        n = int(round(seconds * SR))
+        rows = np.zeros((ECFG["batch_size"], n), np.float32)
+        lens = np.zeros((ECFG["batch_size"],), np.int32)
+        for i in range(ECFG["batch_size"]):
+            w = waves[i if i < len(waves) else 0]
+            lens[i] = min(len(w), n)
+            rows[i, : lens[i]] = w[: lens[i]]
+        x = tfront.pcm16_to_float(torch.from_numpy(tfront.to_pcm16(rows)))
+        feats, flens = tfront.log_mel_spectrogram(x, torch.from_numpy(lens))
+        assert torch.equal(staged[2 * k], feats) and torch.equal(staged[2 * k + 1], flens)
+
+
+TINY = dict(DIMS, n_vocab=120)
+TINY_DCFG = dict(max_new_tokens=8, eot=2, init_tokens=(1, 4))
+
+
+class _Ids:
+    """A tokenizer whose text is the token ids."""
+
+    def decode(self, ids):
+        return " ".join(str(int(i)) for i in ids)
+
+
+class _Pool:
+    """A data set of one batch: (speech, enrollment) rows of the windows of
+    ``ECFG`` with their true lengths, and empty references."""
+
+    sample_rate = SR
+
+    def __init__(self, n):
+        s_len, e_len = (int(round(ECFG[k] * SR)) for k in ("speech_seconds", "enroll_seconds"))
+        self.items = [(_wav(50 + i, 0.12 + 0.1 * i), _wav(70 + i, 0.1)) for i in range(n)]
+        self.batch = {"utt_ids": [f"u{i}" for i in range(n)],
+                      "speech": np.zeros((n, s_len), np.float32),
+                      "speech_lens": np.zeros((n,), np.int32),
+                      "enroll": np.zeros((n, e_len), np.float32),
+                      "enroll_lens": np.zeros((n,), np.int32)}
+        for i, (sp, en) in enumerate(self.items):
+            for key, wave in (("speech", sp), ("enroll", en)):
+                ln = min(len(wave), self.batch[key].shape[1])
+                self.batch[key][i, :ln], self.batch[key + "_lens"][i] = wave[:ln], ln
+        self.text = {}
+
+    def batches(self, batch_size, shuffle=False, drop_last=False):
+        yield self.batch
+
+
+def _tiny_modules():
+    enc = init_params(QFormerTSEncoder(WhisperDims(**TINY), TSEncoderConfig(**TS)), 2).eval()
+    dec = init_params(TSDecoder(WhisperDims(**TINY), startofprev_token=3), 3).eval()
+    return enc, dec
+
+
+@pytest.mark.parametrize("entry", ["decode_dataset", "TranscriptionEngine"])
+def test_enc_chunk_one_gives_the_tokens_of_one_call(entry):
+    """``enc_chunk=1`` encodes a row at a time inside ``encode``: the same
+    tokens as the whole batch in one call, for the decode job and the
+    serving engine."""
+    enc, dec = _tiny_modules()
+    rows = []
+    enc.register_forward_pre_hook(lambda m, args: rows.append(args[0].shape[0]))
+    pool = _Pool(3)
+    out, calls = [], []
+    for chunk in (0, 1):
+        rows.clear()
+        if entry == "decode_dataset":
+            res = decode_dataset(enc, dec, pool, _Ids(), DecodeConfig(**TINY_DCFG), batch_size=3,
+                                 enc_chunk=chunk, device="cpu")
+            out.append(res.hyps)
+        else:
+            eng = TranscriptionEngine(enc, dec, _Ids(), DecodeConfig(**TINY_DCFG),
+                                      EngineConfig(**ECFG, enc_chunk=chunk), device="cpu")
+            out.append(eng.transcribe(pool.items))
+        calls.append(list(rows))
+    b = 3 if entry == "decode_dataset" else ECFG["batch_size"]
+    assert calls == [[b], [1] * b]
+    assert out[0] == out[1] and len(out[0]) == 3
+    assert any(out[0].values() if entry == "decode_dataset" else out[0])
+
+
+def test_decode_dataset_writes_timestamp_segments(tmp_path):
+    """With the timestamp rules ``decode_dataset`` writes a ``segments``
+    file beside ``text``: each line an utterance, its start, its end and
+    its text, from the decoded row's timestamp pairs."""
+    from robustsq_whisper_torch.decode.search import build_beam_decoder, strip_eot
+    from robustsq_whisper_torch.decode.timestamps import segments_from_tokens
+
+    enc, dec = _tiny_modules()
+    pool = _Pool(3)
+    cfg = DecodeConfig(**TINY_DCFG, with_timestamps=True, timestamp_begin=100,
+                       max_initial_timestamp_index=4)
+    res = decode_dataset(enc, dec, pool, _Ids(), cfg, batch_size=3, output_dir=str(tmp_path),
+                         device="cpu")
+    encode_feats = [tfront.pcm16_log_mel(pool.batch[k], pool.batch[k + "_lens"], 80, "cpu")
+                    for k in ("speech", "enroll")]
+    with torch.inference_mode():
+        memory, _, prompt, _ = enc(*encode_feats[0], *encode_feats[1])
+        tokens = build_beam_decoder(dec, cfg, "cpu")(memory, prompt)[0]
+    want = []
+    for utt, ids in zip(pool.batch["utt_ids"], strip_eot(tokens.numpy(), cfg.eot)):
+        assert res.hyps[utt] == " ".join(str(t) for t in ids if t < 100)
+        want += [f"{utt} {s0:.2f} {s1:.2f} {text}"
+                 for s0, s1, text in segments_from_tokens(ids, _Ids(), 100)]
+    assert (tmp_path / "segments").read_text().splitlines() == want
+    assert (tmp_path / "text").exists()
