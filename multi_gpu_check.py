@@ -73,6 +73,7 @@ def launch_counters():
 
     return {
         "flash_attention_tmaj": (fa.flash_attention_tmaj, "launches"),
+        "flash_attention_tmaj_rows": (fa.flash_attention_tmaj, "rows_launches"),
         "decode_cross_attention": (xa.decode_cross_attention, "launches"),
         "decode_cross_attention_grouped": (xa.decode_cross_attention, "grouped_launches"),
         "decode_self_attention": (sa.decode_self_attention, "launches"),

@@ -1,9 +1,18 @@
-// Encoder self-attention in the transposed (b*h, head_dim, T) layout.
+// Encoder self-attention in the transposed layout: time the contiguous axis
+// of every operand, each head 64 channel rows.
 //
 // Replaces the TPU kernel `_attn_kernel_tmaj` (JAX package,
 // ops/flash_attention.py, entry `flash_attention_tmaj`): unmasked
 // softmax(Q K^T / sqrt(d)) V with an f32 online softmax, ragged T masked
-// inside the kernel, time the contiguous axis of every operand.
+// inside the kernel.
+//
+// The operands are read through strides: channel c of head h of batch row b
+// at b * sb + (h * 64 + c) * ld + t. The encoder hands the projection GEMMs'
+// channel-major (heads * 64, b * T) outputs as they are (sb = T, ld = b *
+// T); the JAX package's contiguous (b * h, 64, T) is sb = 64 T, ld = T with
+// one head a row. Optional query and value biases (heads * 64) are added
+// inside: bf16(q + b_q) as Q lands, O / l + b_v in the f32 epilogue. The
+// output is row-major (b, T, heads * 64), as the out-projection reads it.
 //
 // Bound on the card: operations. At Whisper-medium (T = 1516, d = 64) one
 // (batch, head) pair does 4 * T^2 * d = 0.59 GFLOP against 0.78 MB of
@@ -13,12 +22,12 @@
 // bf16 (the serving dtype) runs the Hopper kernel of flash_fwd_sm90.cuh
 // in its TMAJ layout: wgmma with Q read M-major, K N-major and V K-major
 // from swizzled shared memory, K/V loaded by a loader warpgroup with
-// cp.async along T (16-, 8- or 4-byte words as t_len's alignment allows,
-// 2-byte loads for odd t_len; TMA needs 16-byte strides, which T = 1516
-// does not give) into an mbarrier ring, and three consumer warpgroups of 64
-// queries, each one's softmax running while the others' products do. The same
-// kernel serves the row-major training forward (flash_attention.cu), with
-// the same summation order.
+// cp.async along T (16-, 8- or 4-byte words as t_len's and the strides'
+// alignment allows, 2-byte loads for odd ones; TMA needs 16-byte strides,
+// which T = 1516 does not give) into an mbarrier ring, and three consumer
+// warpgroups of 64 queries, each one's softmax running while the others'
+// products do. The same kernel serves the row-major training forward
+// (flash_attention.cu), with the same summation order.
 //
 // f32 inputs (the tests' exact path) run a plain SIMT kernel: one thread
 // per query, q and its accumulator in registers, K/V tiles in shared
@@ -45,20 +54,25 @@ constexpr int KS = HD + 4;  // padded tile row stride in floats (16 B aligned)
 __global__ void __launch_bounds__(BQ)
     flash_tmaj_f32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
-                          const float* __restrict__ v, float* __restrict__ o,
-                          int t_len, float scale_log2) {
+                          const float* __restrict__ v,
+                          const float* __restrict__ bq,
+                          const float* __restrict__ bv, float* __restrict__ o,
+                          int heads, int t_len, int sb, int ld, float scale_log2) {
   __shared__ __align__(16) float ks[BK * KS];
   __shared__ __align__(16) float vs[BK * KS];
   const int tid = threadIdx.x;
   const int qi = blockIdx.x * BQ + tid;
   const bool live = qi < t_len;
-  const size_t base = (size_t)blockIdx.y * HD * t_len;
+  const int bi = blockIdx.y / heads, hi = blockIdx.y % heads;
+  const size_t base = (size_t)bi * sb + (size_t)hi * HD * ld;
 
   float qr[HD], acc[HD];
 #pragma unroll
   for (int c = 0; c < HD; ++c) {
+    float x = live ? q[base + (size_t)c * ld + qi] : 0.f;
+    if (bq) x += bq[hi * HD + c];
     // scores are kept in log2 units: exp2(s * log2 e) == exp(s)
-    qr[c] = live ? q[base + (size_t)c * t_len + qi] * scale_log2 : 0.f;
+    qr[c] = x * scale_log2;
     acc[c] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
@@ -70,8 +84,8 @@ __global__ void __launch_bounds__(BQ)
       const int t = k0 + j;
       float kv = 0.f, vv = 0.f;
       if (t < t_len) {
-        kv = k[base + (size_t)c * t_len + t];
-        vv = v[base + (size_t)c * t_len + t];
+        kv = k[base + (size_t)c * ld + t];
+        vv = v[base + (size_t)c * ld + t];
       }
       ks[j * KS + c] = kv;
       vs[j * KS + c] = vv;
@@ -119,38 +133,44 @@ __global__ void __launch_bounds__(BQ)
   }
   if (live) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
+    float* orow = o + ((size_t)bi * t_len + qi) * heads * HD + hi * HD;
 #pragma unroll
-    for (int c = 0; c < HD; ++c) o[base + (size_t)c * t_len + qi] = acc[c] * inv;
+    for (int c = 0; c < HD; ++c) orow[c] = fmaf(acc[c], inv, bv ? bv[hi * HD + c] : 0.f);
   }
 }
 
 }  // namespace
 
-// q, k, v, o: (bh, head_dim, t_len) contiguous, dtype 0 = f32, 1 = bf16.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int flash_attention_tmaj(const void* q, const void* k,
-                                    const void* v, void* o, int bh,
-                                    int head_dim, int t_len, int dtype,
-                                    void* stream) {
-  if (head_dim != HD || t_len <= 0 || bh <= 0 || bh > 65535)
+// q, k, v: channel c of head h of batch row b, time t at b * sb + (h * 64 +
+// c) * ld + t, 16-byte aligned; bq, bv: null or (heads * 64); o: (batch,
+// t_len, heads * 64) contiguous; dtype 0 = f32, 1 = bf16. Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int flash_attention_tmaj(const void* q, const void* k, const void* v,
+                                    const void* bq, const void* bv, void* o, int batch,
+                                    int heads, int head_dim, int t_len, int sb, int ld,
+                                    int dtype, void* stream) {
+  const int bh = batch * heads;
+  if (head_dim != HD || t_len <= 0 || batch <= 0 || heads <= 0 || bh > 65535 || sb <= 0 ||
+      ld < t_len)
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = LOG2E / sqrtf((float)head_dim);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
     const dim3 grid((t_len + BQ - 1) / BQ, bh);
     flash_tmaj_f32_kernel<<<grid, BQ, 0, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, t_len,
-        scale_log2);
+        (const float*)q, (const float*)k, (const float*)v, (const float*)bq,
+        (const float*)bv, (float*)o, heads, t_len, sb, ld, scale_log2);
   } else if (dtype == 1) {
     namespace f = flash::sm90;
-    const f::Params p{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-                      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, nullptr, nullptr,
-                      1, t_len, t_len, {0, 0, 0, 0}, scale_log2};
+    using B = const __nv_bfloat16*;
+    const f::Params p{(B)q, (B)k, (B)v, (__nv_bfloat16*)o, nullptr, nullptr,
+                      heads, t_len, t_len, {0, 0, 0, 0}, scale_log2, sb, ld, (B)bq, (B)bv};
     // the widest word along T that keeps every word aligned (16-byte base
     // pointers) and wholly inside [0, t_len) or wholly past it
-    if (t_len % 8 == 0) return (int)f::launch<f::Tmaj<16>, false, false>(p, bh, st);
-    if (t_len % 4 == 0) return (int)f::launch<f::Tmaj<8>, false, false>(p, bh, st);
-    if (t_len % 2 == 0) return (int)f::launch<f::Tmaj<4>, false, false>(p, bh, st);
+    const int a = t_len | sb | ld;
+    if (a % 8 == 0) return (int)f::launch<f::Tmaj<16>, false, false>(p, bh, st);
+    if (a % 4 == 0) return (int)f::launch<f::Tmaj<8>, false, false>(p, bh, st);
+    if (a % 2 == 0) return (int)f::launch<f::Tmaj<4>, false, false>(p, bh, st);
     return (int)f::launch<f::Tmaj<2>, false, false>(p, bh, st);
   } else {
     return (int)cudaErrorInvalidValue;

@@ -1,12 +1,13 @@
 // The bf16 flash-attention forward for Hopper, one kernel for both layouts.
 //
 // Replaces the TPU kernels `_attn_kernel_tmaj` (serving, the transposed
-// (b*h, 64, T) layout) and `_attn_kernel` (training, row-major (b, T, heads,
-// 64) with an optional additive mask and the log-sum-exp), JAX package
-// ops/flash_attention.py. Both compute softmax(Q K^T / sqrt(d) [+ mask]) V
-// with an f32 online softmax; P is rounded to bf16 before P V, as the TPU's
-// default-precision dot rounds it. flash_attention_tmaj.cu and
-// flash_attention.cu launch it for every bf16 input.
+// layout: time contiguous, each head 64 channel rows) and `_attn_kernel`
+// (training, row-major (b, T, heads, 64) with an optional additive mask and
+// the log-sum-exp), JAX package ops/flash_attention.py. Both compute
+// softmax(Q K^T / sqrt(d) [+ mask]) V with an f32 online softmax; P is
+// rounded to bf16 before P V, as the TPU's default-precision dot rounds it.
+// flash_attention_tmaj.cu and flash_attention.cu launch it for every bf16
+// input.
 //
 // Bound on the card: operations, twice. The two products take 4 * T^2 * 64
 // tensor-core operations a head (0.038 ms at the serving call, 64 heads of
@@ -31,11 +32,11 @@
 //   bits): TMAJ reads Q M-major, K N-major and V K-major; ROWS reads Q and K
 //   K-major and V N-major.
 // - The loader fills a ring of STAGES K/V stages ahead of the math with
-//   cp.async (TMA needs 16-byte global strides, and the TMAJ stride at T =
-//   1516 is 3032 B), in the widest word the layout's alignment allows (16 B
-//   rows in ROWS; 16, 8 or 4 B along T in TMAJ as t_len allows, 2-byte loads
-//   for odd t_len). A loader thread always moves the same words of a tile,
-//   so its addresses are computed once. Words past the valid length are
+//   cp.async (TMA needs 16-byte global strides, and a TMAJ channel stride of
+//   T = 1516 is 3032 B), in the widest word the layout's alignment allows (16
+//   B rows in ROWS; 16, 8 or 4 B along T in TMAJ as t_len and the strides
+//   allow, 2-byte loads for odd ones). A loader thread always moves the same
+//   words of a tile, so its addresses are computed once. Words past the valid length are
 //   written as zeros, so a ragged V tail is 0, never stale. Each loader
 //   thread's copies arrive on the stage's "full" mbarrier as they land
 //   (cp.async.mbarrier.arrive), so the loader only ever blocks on a free
@@ -47,8 +48,14 @@
 //   and runs the softmax of S_j (ex2.approx on log2-scaled scores) while
 //   the others' products run.
 // - The epilogue divides by max(l, 1e-30), stages O in the warpgroup's own
-//   Q tile and stores it with the widest aligned words: along T in TMAJ,
-//   along rows in ROWS.
+//   Q tile as 128-byte rows of one query's 64 channels and stores them in
+//   16-byte words: both layouts write row-major output.
+// - TMAJ reads the channel-major output of the projection GEMMs as it is:
+//   head h of batch row b starts at b * sb + h * 64 * ld, channel rows ld
+//   apart, and its optional biases are added on the card: the query bias to
+//   the Q tile in shared memory once it lands (bf16(q + b_q), the rounding
+//   of a separate add), the value bias in the f32 epilogue (O / l + b_v,
+//   exact in arithmetic since each softmax row sums to 1).
 //
 // Semantics pinned by the tests: keys at or past kv_len score -inf; a row
 // whose scores are all -inf so far uses 0 as its reference maximum; lse =
@@ -90,23 +97,31 @@ struct Params {
   __nv_bfloat16* o;
   float* lse;                // (b * h, q_len), written when LSE
   const float* mask;         // read at MaskStrides when MASK
-  int heads, q_len, kv_len;  // TMAJ: q_len == kv_len == t_len, heads unused
+  int heads, q_len, kv_len;  // TMAJ: q_len == kv_len == t_len
   MaskStrides ms;
   float scale_log2;
+  // TMAJ: the operands' batch-row and channel strides (elements), and the
+  // query and value biases (heads * 64 each), or null
+  int sb, ld;
+  const __nv_bfloat16* bq;
+  const __nv_bfloat16* bv;
 };
 
 // ---- the two layouts ----
 //
 // A layout moves a tile of N times (N a multiple of 64: the Q tile, a K or V
-// tile) of one head from device to shared memory, moves a warpgroup's 64 x
-// 64 output tile from registers to device memory through shared memory, and
-// names the descriptors of the three products.
+// tile) of one head from device to shared memory, reads the head's biases
+// (q_bias, v_bias) and adds the query bias to a warpgroup's Q piece
+// (add_q_bias, true if it wrote), moves a warpgroup's 64 x 64 output tile
+// from registers to device memory through shared memory, and names the
+// descriptors of the three products.
 
-// (b*h, 64, T) with T contiguous. A tile is N / 64 pieces of 64 channel rows
-// of 64 times: time t of channel c at piece t / 64, row c, column t % 64.
-// W: the load/store word in bytes (t_len % (W / 2) == 0).
+// Time contiguous: channel c of head h of batch row b at b * sb + (h * 64 +
+// c) * ld, output (b, T, heads * 64). A tile is N / 64 pieces of 64 channel
+// rows of 64 times: time t of channel c at piece t / 64, row c, column t %
+// 64. W: the load word in bytes (t_len, ld and sb multiples of W / 2).
 template <int W>
-struct Tmaj {
+struct Tmaj : RowTiles {
   static constexpr int E = W / 2;  // bf16 a word
   static constexpr int TA_S = 1, TB_S = 1, TB_PV = 0;  // Q M-, K N-, V K-major
 
@@ -119,11 +134,16 @@ struct Tmaj {
   struct Head {
     const __nv_bfloat16 *q, *k, *v;
     __nv_bfloat16* o;
-    int ld;  // t_len
+    int ld;   // channel stride of q, k, v
+    int ldo;  // heads * 64, the output's row stride
+    const __nv_bfloat16 *bq, *bv;  // this head's 64 biases, or null
   };
   __device__ __forceinline__ static Head head(const Params& p, int bh) {
-    const size_t base = (size_t)bh * HD * p.kv_len;
-    return {p.q + base, p.k + base, p.v + base, p.o + base, p.kv_len};
+    const int bi = bh / p.heads, hi = bh % p.heads;
+    const size_t in = (size_t)bi * p.sb + (size_t)hi * HD * p.ld;
+    const size_t out = ((size_t)bi * p.q_len * p.heads + hi) * HD;
+    return {p.q + in, p.k + in, p.v + in, p.o + out, p.ld, p.heads * HD,
+            p.bq ? p.bq + hi * HD : nullptr, p.bv ? p.bv + hi * HD : nullptr};
   }
 
   __device__ __forceinline__ static uint32_t off(int c, int t) {
@@ -191,30 +211,56 @@ struct Tmaj {
     return desc(v_tile + (kk >> 2) * HALF_BYTES + (kk & 3) * 32, 16, 1024);
   }
 
-  // o[i]: row (query) r0 or r0 + 8 (i & 2), channel 8 (i >> 2) + 2 qd + (i & 1)
-  __device__ __forceinline__ static void stage(char* half, const float (&o)[32], int r0,
-                                               int qd, float inv0, float inv1) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int c = 8 * (i >> 2) + 2 * qd + (i & 1), r = r0 + ((i & 2) ? 8 : 0);
-      *reinterpret_cast<__nv_bfloat16*>(half + swz(c, r >> 3) + (r & 7) * 2) =
-          __float2bfloat16(o[i] * ((i & 2) ? inv1 : inv0));
-    }
+  // this thread's query bias, channel tid / 2 of the head (0 without one),
+  // read before Q lands so that its latency hides under Q's
+  __device__ __forceinline__ static float q_bias(const Head& h, int tid) {
+    return h.bq ? __bfloat162float(h.bq[tid >> 1]) : 0.f;
   }
-  // a staged 64 x 64 tile (channels x queries [q0, q0 + 64)) to device memory
-  __device__ __forceinline__ static void store(__nv_bfloat16* dst, int ld, const char* half,
-                                               int q0, int n, int tid) {
-    constexpr int ROW = 64 / E;
+  // adds it to a warpgroup's landed 64 x 64 Q piece, whose row c is channel
+  // c: thread tid takes half of row tid / 2
+  __device__ __forceinline__ static bool add_q_bias(const Head& h, char* half, int tid, float b) {
+    if (!h.bq) return false;
 #pragma unroll
-    for (int i = tid; i < HD * ROW; i += 128) {
-      const int c = i / ROW, t = (i % ROW) * E;
-      if (q0 + t >= n) continue;
-      const char* s = half + swz(c, t >> 3) + (t & 7) * 2;
-      __nv_bfloat16* d = dst + (size_t)c * ld + q0 + t;
-      if constexpr (W == 16) *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
-      if constexpr (W == 8) *reinterpret_cast<uint2*>(d) = *reinterpret_cast<const uint2*>(s);
-      if constexpr (W == 4) *reinterpret_cast<uint32_t*>(d) = *reinterpret_cast<const uint32_t*>(s);
-      if constexpr (W == 2) *d = *reinterpret_cast<const __nv_bfloat16*>(s);
+    for (int k = 0; k < 4; ++k) {
+      uint4* w = reinterpret_cast<uint4*>(half + swz(tid >> 1, 4 * (tid & 1) + k));
+      uint4 x = *w;
+      __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(e[j]);
+        e[j] = __floats2bfloat162_rn(f.x + b, f.y + b);
+      }
+      *w = x;
+    }
+    return true;
+  }
+
+  // the value bias at this thread's output channels 8 j + 2 qd (+ 1), read
+  // while the last P V runs
+  struct VBias {
+    __nv_bfloat162 b[8];
+  };
+  __device__ __forceinline__ static VBias v_bias(const Head& h, int qd) {
+    VBias r;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      r.b[j] = h.bv ? *reinterpret_cast<const __nv_bfloat162*>(h.bv + 8 * j + 2 * qd)
+                    : __floats2bfloat162_rn(0.f, 0.f);
+    return r;
+  }
+
+  // o[i]: query r0 or r0 + 8 (i & 2), channel 8 (i >> 2) + 2 qd + (i & 1),
+  // times inv0 or inv1 plus the value bias in f32, into a 64-row tile
+  __device__ __forceinline__ static void stage(char* half, const float (&o)[32], int r0,
+                                               int qd, float inv0, float inv1,
+                                               const VBias& vb) {
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int c = 8 * (i >> 2) + 2 * qd, r = r0 + ((i & 2) ? 8 : 0);
+      const float s = (i & 2) ? inv1 : inv0;
+      const float2 b = __bfloat1622float2(vb.b[i >> 2]);
+      *reinterpret_cast<__nv_bfloat162*>(half + swz(r, c >> 3) + (c & 7) * 2) =
+          __floats2bfloat162_rn(fmaf(o[i], s, b.x), fmaf(o[i + 1], s, b.y));
     }
   }
 };
@@ -226,14 +272,26 @@ struct Rows : RowTiles {
   struct Head {
     const __nv_bfloat16 *q, *k, *v;
     __nv_bfloat16* o;
-    int ld;  // heads * 64
+    int ld, ldo;  // heads * 64
   };
   __device__ __forceinline__ static Head head(const Params& p, int bh) {
     const int bi = bh / p.heads, hi = bh % p.heads;
     const size_t ld = (size_t)p.heads * HD;
     const size_t qo = (size_t)bi * p.q_len * ld + hi * HD;
     const size_t ko = (size_t)bi * p.kv_len * ld + hi * HD;
-    return {p.q + qo, p.k + ko, p.v + ko, p.o + qo, (int)ld};
+    return {p.q + qo, p.k + ko, p.v + ko, p.o + qo, (int)ld, (int)ld};
+  }
+
+  // no biases
+  __device__ __forceinline__ static float q_bias(const Head&, int) { return 0.f; }
+  __device__ __forceinline__ static bool add_q_bias(const Head&, char*, int, float) {
+    return false;
+  }
+  struct VBias {};
+  __device__ __forceinline__ static VBias v_bias(const Head&, int) { return {}; }
+  __device__ __forceinline__ static void stage(char* half, const float (&o)[32], int r0,
+                                               int qd, float inv0, float inv1, VBias) {
+    RowTiles::stage(half, o, r0, qd, inv0, inv1);
   }
 
   __device__ __forceinline__ static uint64_t desc_q(uint32_t q_half, int kk) {
@@ -413,7 +471,12 @@ __global__ void __launch_bounds__(Shape<NWG>::THREADS, 1)
   };
 
   if (c == NWG - 1) bar_arrive(1, 256);  // warpgroup 0 issues first
+  const float qb = L::q_bias(h, t);
   mbar_wait(q_full, 0);
+  if (L::add_q_bias(h, base_ptr + c * HALF_BYTES, t, qb)) {
+    fence_async_shared();  // the biased Q, for the wgmma's async proxy
+    bar_sync(1 + NWG + c, 128);
+  }
 
   // turn 0: S_0
   mbar_wait(full(0), 0);
@@ -460,6 +523,7 @@ __global__ void __launch_bounds__(Shape<NWG>::THREADS, 1)
   wgmma_fence();
   issue_pv((n_tiles - 1) % STAGES);
   if (c != NWG - 1) bar_arrive(next_turn, 256);
+  const typename L::VBias vb = L::v_bias(h, qd);
   wgmma_wait<0>();
   fence_regs(o);
   fence_regs(pa);
@@ -484,9 +548,9 @@ __global__ void __launch_bounds__(Shape<NWG>::THREADS, 1)
   }
   // O through this warpgroup's own Q tile, which no product reads any more
   char* half = base_ptr + c * HALF_BYTES;
-  L::stage(half, o, g, qd, 1.f / l0, 1.f / l1);
+  L::stage(half, o, g, qd, 1.f / l0, 1.f / l1, vb);
   bar_sync(1 + NWG + c, 128);
-  L::store(h.o, h.ld, half, q0 + 64 * c, p.q_len, t);
+  L::store(h.o, h.ldo, half, q0 + 64 * c, p.q_len, t);
 }
 
 // Launch for (q tiles, b * h); unmasked calls take three consumer

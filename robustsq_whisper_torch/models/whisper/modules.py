@@ -75,7 +75,7 @@ from ...ops.decode_attention import (
     pack_int4,
     unpack_int4,
 )
-from ...ops.flash_attention import flash_attention, flash_attention_tmaj
+from ...ops.flash_attention import flash_attention, flash_attention_tmaj_rows
 from ...ops.quant import qmatmul, quantize_activation, quantize_weight
 from ...ops.self_attention import (
     BLOCK_POS,
@@ -363,22 +363,24 @@ class MultiHeadAttention(nn.Module):
         return _proj(self.out, self._merge(o), _qw(qw, "out"))
 
     def self_attend_tmaj(self, x: torch.Tensor) -> torch.Tensor:
-        """Self-attention through the transposed-layout kernel: the
-        projections emit (b, n_state, T) directly, the head split is a free
-        reshape to (b*h, hd, T), and only the output projection returns to
-        (b, T, n_state)."""
-        b, t, _ = x.shape
+        """Self-attention through the transposed-layout kernel: each
+        projection is one 2-D GEMM ``w @ x.t()`` whose channel-major
+        (n_state, b*T) output the kernel reads per head through strides,
+        adding the query and value biases itself, and the kernel's
+        row-major (b, T, n_state) output feeds the out-projection: no copy
+        or bias add between the GEMMs and the kernel."""
+        b, t, c = x.shape
         h, d = self.n_head, self.n_state // self.n_head
-        xt = x.to(self.dtype).transpose(1, 2)  # (b, c, T) view
+        x2 = x.to(self.dtype).reshape(b * t, c)
 
         def proj(lin: Linear) -> torch.Tensor:
-            y = torch.matmul(lin.effective_weight(), xt)  # (b, n_state, T)
-            if lin.bias is not None:
-                y = y + lin.bias[None, :, None]
-            return y.contiguous().reshape(b * h, d, t)
+            y = torch.mm(lin.effective_weight(), x2.t())  # (n_state, b*T)
+            return y.view(h, d, b, t).permute(2, 0, 1, 3)  # (b, h, d, T) view
 
-        o = flash_attention_tmaj(proj(self.query), proj(self.key), proj(self.value))
-        o = o.reshape(b, self.n_state, t).transpose(1, 2)
+        o = flash_attention_tmaj_rows(
+            proj(self.query), proj(self.key), proj(self.value),
+            self.query.bias, self.value.bias,
+        )
         return F.linear(o, self.out.effective_weight(), self.out.bias)
 
     def forward(

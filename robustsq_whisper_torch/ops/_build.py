@@ -46,7 +46,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of each entry point: pointers and the stream as void*, sizes
 # and modes as int
 SIGNATURES = {
-    "flash_attention_tmaj": [_P] * 4 + [_I] * 4 + [_P],
+    "flash_attention_tmaj": [_P] * 6 + [_I] * 7 + [_P],
     "decode_cross_attention": [_P] * 9 + [_I] * 11 + [_P],
     "decode_self_attention": [_P] * 8 + [_I] * 5 + [_P],
     "decode_self_attention_int8": [_P] * 9 + [_I] * 5 + [_P],

@@ -2,11 +2,15 @@
 
 Two layouts, each the JAX package's contract:
 
-- ``flash_attention_tmaj`` (serving): the transposed (b*h, head_dim, T)
-  layout, unmasked softmax(Q^T K / sqrt(d)), kernel
-  ``csrc/flash_attention_tmaj.cu``. Differentiable: its backward goes through
-  the row-major kernels below on (bh, T, 1, d) views, after a recompute of
-  the row-major forward, as the JAX package's ``_flash_tmaj_bwd`` does.
+- ``flash_attention_tmaj``: the transposed (b*h, head_dim, T) layout,
+  unmasked softmax(Q^T K / sqrt(d)), kernel ``csrc/flash_attention_tmaj.cu``.
+  Differentiable: its backward goes through the row-major kernels below on
+  (bh, T, 1, d) views, after a recompute of the row-major forward, as the
+  JAX package's ``_flash_tmaj_bwd`` does. ``flash_attention_tmaj_rows``
+  (serving) is the same kernel on (b, heads, 64, T) strided views, such as
+  the channel-major output of the encoder's projection GEMMs, with the query
+  and value biases added inside and a row-major (b, T, heads * 64) output,
+  as the out-projection reads it; its backward is the same recompute.
 - ``flash_attention`` (training): row-major (batch, T, heads, head_dim) with
   an optional additive mask, a ``torch.autograd.Function``. Its forward
   (``flash_attention_fwd``, kernel ``csrc/flash_attention.cu``) also returns
@@ -21,6 +25,9 @@ in ``<wrapper>.launches``. ``flash_attention_plain`` is the whole function
 in plain PyTorch (f32 softmax, autograd through plain ops): the reference
 the tests hold the route against. Softmax math is f32; outputs and
 gradients come back in the input dtype, the log-sum-exp in f32.
+``flash_attention_tmaj.launches`` counts every launch of the transposed
+kernel, ``flash_attention_tmaj.rows_launches`` those through
+``flash_attention_tmaj_rows``.
 """
 
 from __future__ import annotations
@@ -47,31 +54,84 @@ def flash_attention_tmaj_plain(
     return torch.einsum("bqk,bdk->bdq", p, v.float()).to(q.dtype)
 
 
-def _tmaj_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return flash_attention_tmaj_plain(q, k, v)
+def flash_attention_tmaj_rows_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_bias: Optional[torch.Tensor] = None,
+    v_bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the strided form: (b, h, d, T) views in,
+    (b, T, h*d) out; the query bias rounded with q, the value bias added to
+    the f32 output, as the kernel adds them."""
+    b, h, d, t = q.shape
+    if q_bias is not None:
+        q = (q.float() + q_bias.float().view(h, d, 1)).to(q.dtype)
+    s = torch.einsum("bhdq,bhdk->bhqk", q.float(), k.float()) * d**-0.5
+    o = torch.einsum("bhqk,bhdk->bqhd", torch.softmax(s, dim=-1), v.float())
+    if v_bias is not None:
+        o = o + v_bias.float().view(h, d)
+    return o.reshape(b, t, h * d).to(q.dtype)
+
+
+def _tmaj_launch(q, k, v, q_bias, v_bias) -> torch.Tensor:
+    """The kernel on (b, h, 64, T) views of one stride pattern (time
+    contiguous, channels ld apart, heads 64 ld apart): (b, T, h * 64)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must share a (bh, d, T) shape: {q.shape}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must share a (b, h, d, T) shape: {q.shape}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"q, k, v must all be f32 or bf16: {q.dtype}")
-    for t in (k, v):
-        if t.device != q.device:
-            raise ValueError("q, k, v must be on one device")
-    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k, v must be contiguous and 16-byte aligned")
-    bh, d, t_len = q.shape
+    b, h, d, t_len = q.shape
     if d != 64:
         raise ValueError(f"the kernel takes head_dim 64, got {d}")
-    out = torch.empty_like(q)
+    sb, sh, ld, st = q.stride()
+    biases = [x for x in (q_bias, v_bias) if x is not None]
+    for x in (k, v, *biases):
+        if x.device != q.device:
+            raise ValueError("operands must be on one device")
+    if any(x.stride() != q.stride() or x.data_ptr() % 16 for x in (q, k, v)) or (
+        st != 1 or sh != d * ld or ld < t_len or max(sb, ld) >= 2**31
+    ):
+        raise ValueError(
+            "q, k, v must share 16-byte aligned (b, h, 64, T) strides with time "
+            f"contiguous and heads 64 channel rows apart: {q.stride()}"
+        )
+    for x in biases:
+        if x.shape != (h * d,) or x.dtype != q.dtype or not x.is_contiguous() or x.data_ptr() % 4:
+            raise ValueError(f"biases must be contiguous (h * 64,) in q's dtype: {x.shape}")
+    out = torch.empty((b, t_len, h * d), dtype=q.dtype, device=q.device)
+    ptr = lambda x: None if x is None else x.data_ptr()
     err = _build.load("flash_attention_tmaj")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        bh, d, t_len, _DTYPES[q.dtype], _build.stream_ptr(q.device),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(q_bias), ptr(v_bias), out.data_ptr(),
+        b, h, d, t_len, sb, ld, _DTYPES[q.dtype], _build.stream_ptr(q.device),
     )
     _build.check(err, "flash_attention_tmaj")
     flash_attention_tmaj.launches += 1
     return out
+
+
+def _tmaj_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return flash_attention_tmaj_plain(q, k, v)
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must share a (bh, d, T) shape: {q.shape}")
+    if any(not t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("q, k, v must be contiguous")
+    bh, d, t_len = q.shape
+    one = lambda z: z.view(bh, 1, d, t_len)
+    return _tmaj_launch(one(q), one(k), one(v), None, None).transpose(1, 2)
+
+
+def _tmaj_rm_backward(q, k, v, g):
+    """dq, dk, dv of softmax(q^T k / sqrt(d)) v through the row-major
+    kernels, from (b, h, d, T) operands and the (b, T, h, d) cotangent."""
+    rm = lambda z: z.permute(0, 3, 1, 2).contiguous()  # (b, T, h, d)
+    qr, kr, vr = rm(q), rm(k), rm(v)
+    out, lse = flash_attention_fwd(qr, kr, vr)
+    grads = _flash_backward(qr, kr, vr, None, out, lse, g)
+    return tuple(x.permute(0, 2, 3, 1) for x in grads)
 
 
 class _FlashTmaj(torch.autograd.Function):
@@ -83,11 +143,9 @@ class _FlashTmaj(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        rm = lambda z: z.transpose(1, 2)[:, :, None, :].contiguous()  # (bh, T, 1, d)
-        qr, kr, vr = rm(q), rm(k), rm(v)
-        out, lse = flash_attention_fwd(qr, kr, vr)
-        grads = _flash_backward(qr, kr, vr, None, out, lse, rm(g))
-        return tuple(x[:, :, 0, :].transpose(1, 2) for x in grads)
+        one = lambda z: z[:, None]  # (bh, 1, d, T)
+        grads = _tmaj_rm_backward(one(q), one(k), one(v), g.transpose(1, 2)[:, :, None, :])
+        return tuple(x[:, 0] for x in grads)
 
 
 def flash_attention_tmaj(
@@ -99,7 +157,43 @@ def flash_attention_tmaj(
     return _FlashTmaj.apply(q, k, v)
 
 
+class _FlashTmajRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, q_bias, v_bias):
+        ctx.save_for_backward(q, k, v, q_bias)
+        if q.device.type == "cpu":
+            return flash_attention_tmaj_rows_plain(q, k, v, q_bias, v_bias)
+        flash_attention_tmaj.rows_launches += 1
+        return _tmaj_launch(q, k, v, q_bias, v_bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, q_bias = ctx.saved_tensors
+        b, h, d, t = q.shape
+        if q_bias is not None:
+            q = (q.float() + q_bias.float().view(h, d, 1)).to(q.dtype)
+        dq, dk, dv = _tmaj_rm_backward(q, k, v, g.reshape(b, t, h, d))
+        need = ctx.needs_input_grad
+        dqb = dq.float().sum((0, 3)).reshape(-1).to(q.dtype) if need[3] else None
+        dvb = g.float().sum((0, 1)).to(q.dtype) if need[4] else None
+        return dq, dk, dv, dqb, dvb
+
+
+def flash_attention_tmaj_rows(
+    q: torch.Tensor,  # (batch, heads, 64, T): time contiguous, heads 64 channel rows apart
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_bias: Optional[torch.Tensor] = None,  # (heads * 64,)
+    v_bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """softmax((Q + b_q)^T K / sqrt(d)) (V + b_v) from strided time-major
+    views, such as ``w @ x.t()`` viewed per head; (batch, T, heads * 64)
+    out, row-major."""
+    return _FlashTmajRows.apply(q, k, v, q_bias, v_bias)
+
+
 flash_attention_tmaj.launches = 0
+flash_attention_tmaj.rows_launches = 0
 
 
 # ---- row-major layout (training) ----

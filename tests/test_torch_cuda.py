@@ -59,6 +59,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False  # f32 convolutions, as on the CPU
     return torch.device("cuda")
 
 
@@ -90,6 +91,59 @@ def test_flash_tmaj_kernel_matches_plain(cuda, t_len, dtype, bh):
     ref = tflash.flash_attention_tmaj_plain(q.float(), k.float(), v.float())
     tol = F32_TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=3e-3)
     torch.testing.assert_close(got.float(), ref, **tol)
+
+
+def _tmaj_rows_inputs(cuda, seed, b, heads, t_len, dtype):
+    """q, k, v as the encoder hands them to the strided form, per-head views
+    of one channel-major (3 heads 64, b T) GEMM output, and O(1) query and
+    value biases."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n = heads * 64
+    y = torch.randn(3 * n, b * t_len, generator=g, device=cuda).to(dtype)
+    bias = torch.randn(2, n, generator=g, device=cuda).to(dtype)
+    q, k, v = (z.view(heads, 64, b, t_len).permute(2, 0, 1, 3) for z in y.split(n))
+    return q, k, v, bias[0], bias[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_len", [63, 301, 1500, 1516])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# Whisper-medium's 16 heads and large-v3-turbo's 20, at 2 utterances and at
+# an encoder chunk of 32
+@pytest.mark.parametrize("heads", [16, 20])
+@pytest.mark.parametrize("b", [2, 32])
+def test_flash_tmaj_rows_kernel_matches_plain(cuda, t_len, dtype, heads, b):
+    """The strided, biased, row-output form against the plain version in
+    f32 on the same (bf16-valued) inputs, the query bias rounded to the
+    input dtype as the kernel rounds it: a bf16 output is off by its own
+    rounding and that of P (2^-9 each)."""
+    q, k, v, bq, bv = _tmaj_rows_inputs(cuda, t_len + heads + b, b, heads, t_len, dtype)
+    n = (tflash.flash_attention_tmaj.launches, tflash.flash_attention_tmaj.rows_launches)
+    got = tflash.flash_attention_tmaj_rows(q, k, v, bq, bv)
+    torch.cuda.synchronize()
+    assert (tflash.flash_attention_tmaj.launches,
+            tflash.flash_attention_tmaj.rows_launches) == (n[0] + 1, n[1] + 1)
+    assert got.shape == (b, t_len, heads * 64) and got.dtype == dtype and got.is_contiguous()
+    qb = (q.float() + bq.float().view(heads, 64, 1)).to(dtype).float()
+    ref = tflash.flash_attention_tmaj_rows_plain(qb, k.float(), v.float(), None, bv.float())
+    tol = F32_TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=3e-3)
+    torch.testing.assert_close(got.float(), ref, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_len", [63, 301, 1516])
+def test_flash_tmaj_strided_form_is_the_contiguous_form(cuda, t_len):
+    """Without biases the strided form on channel-major views gives the
+    same bits as the contiguous (b*h, 64, T) form on the same data: only
+    the addressing differs."""
+    b, heads = 3, 4
+    q, k, v, _, _ = _tmaj_rows_inputs(cuda, t_len, b, heads, t_len, torch.bfloat16)
+    rows = tflash.flash_attention_tmaj_rows(q, k, v)
+    flat = lambda z: z.contiguous().view(b * heads, 64, t_len)
+    old = tflash.flash_attention_tmaj(flat(q), flat(k), flat(v))
+    torch.cuda.synchronize()
+    assert torch.equal(rows, old.reshape(b, heads, 64, t_len).permute(0, 3, 1, 2)
+                       .reshape(b, t_len, heads * 64))
 
 
 # (layers, batch, heads, layer read): a small stack, and Whisper-medium's
@@ -514,6 +568,7 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
 
     for mod, name in (
         (tflash, "flash_attention_tmaj_plain"),
+        (tflash, "flash_attention_tmaj_rows_plain"),
         (tflash, "flash_attention_fwd_plain"),
         (tflash, "flash_attention_bwd_dq_plain"),
         (tflash, "flash_attention_bwd_dkv_plain"),
@@ -527,6 +582,7 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     g = torch.Generator(device=cuda).manual_seed(0)
     rnd = lambda *s: torch.randn(*s, generator=g, device=cuda)
     tflash.flash_attention_tmaj(rnd(2, 64, 256), rnd(2, 64, 256), rnd(2, 64, 256))
+    tflash.flash_attention_tmaj_rows(*(rnd(2, 2, 64, 256) for _ in range(3)), rnd(128), rnd(128))
     for dtype in (torch.float32, torch.bfloat16):
         qkv = [rnd(1, 70, 2, 64).to(dtype).requires_grad_() for _ in range(3)]
         tflash.flash_attention(*qkv).sum().backward()

@@ -177,11 +177,13 @@ def small_encoded(small, where):
 @pytest.mark.cuda
 def test_small_encoder_agrees_with_cpu(cuda, small):
     """The Qformer encoder's output on the card (the transposed flash
-    kernel, f32) within 1e-3 of the CPU's."""
+    kernel, f32, in its strided row-output form) within 1e-3 of the
+    CPU's."""
     (m_cpu, _), _ = small_encoded(small, torch.device("cpu"))
     (m_card, _), counts = small_encoded(small, cuda)
     assert (m_cpu - m_card.cpu()).abs().max().item() <= 1e-3
     assert_launched(counts, GREEDY_KERNELS[:1])
+    assert counts["flash_attention_tmaj_rows"] == counts["flash_attention_tmaj"]
 
 
 @pytest.mark.cuda
@@ -632,6 +634,57 @@ def test_medium_w8a8_kernels_in_a_trace(cuda, medium, what, tmp_path):
         want = w8a8_expected(counts, engine.dcfg)
         assert seen == {"fused": want, "quantizer": 0, "wgmma": 0}
     assert counts["w8a8_matmul"] == sum(seen.values())
+
+
+def span_kernels(events, span):
+    """Names of the kernels launched inside the first ``span`` range of a
+    chrome trace's events, in device order."""
+    rng = next(e for e in events if e.get("name") == span and e.get("ph") == "X"
+               and e.get("cat") == "user_annotation")
+    lo, hi = rng["ts"], rng["ts"] + rng["dur"]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})
+                and lo <= e["ts"] <= hi}
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"
+                      and e.get("args", {}).get("correlation") in launched),
+                     key=lambda e: e["ts"])
+    return [e["name"] for e in kernels]
+
+
+@pytest.mark.cuda
+@pytest.mark.slow
+def test_medium_encode_feeds_flash_from_the_gemms(cuda, medium, tmp_path):
+    """One Whisper-medium encoder chunk (4 utterances, bf16) under
+    ``rsq:decode.encode`` in a profiler trace: each of the 24 blocks runs
+    its three projection GEMMs straight into ``flash_fwd_sm90_kernel`` and
+    the flash output straight into the out-projection, with no elementwise
+    or copy kernel between them, and the strided row-output form launches
+    once a block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from robustsq_whisper_torch.utils.profiling import annotate
+
+    enc = medium["enc"]
+    engine = engine_for(torch, cuda, enc, medium["dec"], BATCH, MAX_NEW)
+    staged = engine.stage(medium["items"])
+
+    def fn():
+        with torch.inference_mode(), annotate("rsq:decode.encode"):
+            return enc(*staged)
+
+    fn()  # warm
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, counts = counted(torch, fn)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    names = span_kernels(json.loads((tmp_path / "trace.json").read_text())["traceEvents"],
+                         "rsq:decode.encode")
+    flash = [i for i, n in enumerate(names) if "flash_fwd_sm90_kernel" in n]
+    assert len(flash) == 24
+    for i in flash:
+        around = names[i - 3:i] + names[i + 1:i + 2]  # q, k, v GEMMs; the out-projection
+        assert not [n for n in around if "elementwise" in n or "copy" in n.lower()], around
+    assert counts["flash_attention_tmaj_rows"] == counts["flash_attention_tmaj"] == 24
 
 
 @pytest.mark.cuda

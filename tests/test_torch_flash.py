@@ -133,6 +133,76 @@ def test_flash_tmaj_grads_match_rowmajor():
         np.testing.assert_allclose(got_t, np.asarray(r), rtol=1e-4, atol=1e-4)
 
 
+def _biased_attention(seed, n_state, n_head):
+    """A flash, transposed-route MultiHeadAttention in f32 whose q, v and
+    out biases are O(1) and non-zero."""
+    from robustsq_whisper_torch.models.whisper.modules import MultiHeadAttention
+
+    torch.manual_seed(seed)
+    mha = MultiHeadAttention(n_state, n_head, use_flash=True, flash_tmaj=True)
+    with torch.no_grad():
+        for lin in (mha.query, mha.value, mha.out):
+            lin.bias.copy_(torch.randn(n_state))
+    return mha.eval()
+
+
+@pytest.mark.parametrize("t_len", [256, 301])
+def test_self_attend_tmaj_matches_attend_and_the_composition(t_len):
+    """The encoder's self-attention through the strided, biased,
+    row-output form of the transposed kernel equals the row-major
+    ``attend`` route and the composition it replaced: the projections with
+    their bias adds, ``flash_attention_tmaj_plain`` on (b*h, 64, T), the
+    transpose back and the out-projection."""
+    import torch.nn.functional as F
+
+    b, n_state, h = 2, 128, 2
+    mha = _biased_attention(t_len, n_state, h)
+    x = torch.randn(b, t_len, n_state)
+    with torch.no_grad():
+        got = mha(x)
+        route = mha.attend(x, *mha.kv(x))
+        proj = lambda lin: (lin(x).transpose(1, 2)).reshape(b * h, 64, t_len)
+        o = tflash.flash_attention_tmaj_plain(proj(mha.query), proj(mha.key), proj(mha.value))
+        composed = F.linear(o.reshape(b, n_state, t_len).transpose(1, 2), mha.out.weight,
+                            mha.out.bias)
+    assert got.shape == (b, t_len, n_state)
+    torch.testing.assert_close(got, route, **TOL)
+    torch.testing.assert_close(got, composed, **TOL)
+
+
+@pytest.mark.parametrize("t_len", [1, 63, 256, 301])
+def test_tmaj_rows_plain_equals_the_contiguous_plain(t_len):
+    """On contiguous (b*h, 64, T) input without biases the strided form's
+    plain version is the old one's, transposed to rows."""
+    b, h = 2, 3
+    q, k, v = (torch.randn(b * h, 64, t_len) for _ in range(3))
+    four = lambda z: z.view(b, h, 64, t_len)
+    rows = tflash.flash_attention_tmaj_rows_plain(four(q), four(k), four(v))
+    old = tflash.flash_attention_tmaj_plain(q, k, v)
+    assert rows.shape == (b, t_len, h * 64)
+    torch.testing.assert_close(rows, old.view(b, h, 64, t_len).permute(0, 3, 1, 2)
+                               .reshape(b, t_len, h * 64), **TOL)
+
+
+def test_tmaj_rows_grads_match_plain_autograd():
+    """The strided form's backward (the row-major kernels' plain versions
+    after a recompute) against autograd through its plain version: q, k, v
+    as strided views of one channel-major GEMM output, and both biases."""
+    b, h, t = 2, 2, 130
+    n = h * 64
+    y0 = torch.randn(3 * n, b * t)
+    b0 = torch.randn(2, n)
+    cot = torch.randn(b, t, n)
+    grads = []
+    for fn in (tflash.flash_attention_tmaj_rows, tflash.flash_attention_tmaj_rows_plain):
+        y, bias = y0.clone().requires_grad_(), b0.clone().requires_grad_()
+        q, k, v = (z.view(h, 64, b, t).permute(2, 0, 1, 3) for z in y.split(n))
+        (fn(q, k, v, bias[0], bias[1]) * cot).sum().backward()
+        grads.append((y.grad, bias.grad))
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, **TOL)
+
+
 def test_lib_path_hashes_the_shared_header(tmp_path, monkeypatch):
     """An edited csrc/*.cuh header changes the library path of a kernel
     that includes it, so a stale library is never loaded."""
