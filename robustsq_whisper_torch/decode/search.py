@@ -411,20 +411,21 @@ def build_beam_decoder(
 
         for i in range(max_new):
             with annotate("rsq:decode.step"):
-                if i < min_new:
-                    logits[:, cfg.eot] = NEG
-                logp = torch.log_softmax(logits, dim=-1).reshape(b, k, vocab)
-                logp = torch.where(done[..., None], eot_only, logp)
-                cand = (scores[..., None] + logp).reshape(b, k * vocab)
-                scores, top_idx = top_k_stable(cand, k)
-                src_beam = top_idx // vocab
-                tok = (top_idx % vocab).to(torch.int32)
-                toks[i] = tok
-                backptr[i] = src_beam
-                done_prev = done.gather(1, src_beam)
-                done = done_prev | (tok == cfg.eot)
-                # lengths follow the beam lineage
-                lengths = lengths.gather(1, src_beam) + (~done_prev).to(torch.int32)
+                with annotate("rsq:decode.beam_select"):
+                    if i < min_new:
+                        logits[:, cfg.eot] = NEG
+                    logp = torch.log_softmax(logits, dim=-1).reshape(b, k, vocab)
+                    logp = torch.where(done[..., None], eot_only, logp)
+                    cand = (scores[..., None] + logp).reshape(b, k * vocab)
+                    scores, top_idx = top_k_stable(cand, k)
+                    src_beam = top_idx // vocab
+                    tok = (top_idx % vocab).to(torch.int32)
+                    toks[i] = tok
+                    backptr[i] = src_beam
+                    done_prev = done.gather(1, src_beam)
+                    done = done_prev | (tok == cfg.eot)
+                    # lengths follow the beam lineage
+                    lengths = lengths.gather(1, src_beam) + (~done_prev).to(torch.int32)
                 if i + 1 == max_new:
                     break  # the next step's logits would go unused
                 with annotate("rsq:decode.stop_check"):
@@ -432,23 +433,24 @@ def build_beam_decoder(
                 if stop:
                     break
 
-                gather_idx = (row0 + src_beam).reshape(-1)
                 step_kw = {}
-                if R:
-                    anc = anc.index_select(0, gather_idx)  # compose permutations
-                    for x in cache:  # the window holds logical rows
-                        x[:, :, s0:s0 + R] = x[:, :, s0:s0 + R].index_select(1, gather_idx)
-                    if base + i - s0 >= R:  # flush the settled permutation
-                        if s0 > 0:  # the kernel's live chunks stop at s0
-                            beam_reorder_cache(cache, anc, live=s0, time_len=t_pad)
-                        anc = identity
-                        s0 += R
-                        s0_dev += R
-                    step_kw = dict(row_map=anc, settled=s0_dev, defer_window=R)
-                elif not use_kernel:  # the JAX package's XLA gather
-                    cache = tuple(x.index_select(1, gather_idx) for x in cache)
-                else:  # positions [0, base + i) hold data
-                    cache = beam_reorder_cache(cache, gather_idx, live=base + i, time_len=t_pad)
+                with annotate("rsq:decode.beam_reorder"):
+                    gather_idx = (row0 + src_beam).reshape(-1)
+                    if R:
+                        anc = anc.index_select(0, gather_idx)  # compose permutations
+                        for x in cache:  # the window holds logical rows
+                            x[:, :, s0:s0 + R] = x[:, :, s0:s0 + R].index_select(1, gather_idx)
+                        if base + i - s0 >= R:  # flush the settled permutation
+                            if s0 > 0:  # the kernel's live chunks stop at s0
+                                beam_reorder_cache(cache, anc, live=s0, time_len=t_pad)
+                            anc = identity
+                            s0 += R
+                            s0_dev += R
+                        step_kw = dict(row_map=anc, settled=s0_dev, defer_window=R)
+                    elif not use_kernel:  # the JAX package's XLA gather
+                        cache = tuple(x.index_select(1, gather_idx) for x in cache)
+                    else:  # positions [0, base + i) hold data
+                        cache = beam_reorder_cache(cache, gather_idx, live=base + i, time_len=t_pad)
                 logits, cache = dec.step(
                     tok.reshape(-1, 1), pos, cache, cross, beam_group=group, qw=qw,
                     **step_kw,

@@ -18,7 +18,12 @@ The spans: ``decode/pipeline.py::decode_dataset`` opens
 and ``rsq:decode.step`` an iteration, with ``rsq:decode.stop_check`` (the
 host's read of the stop flag; greedy's may wait on the device there, see
 ``search.StopFlags``) and greedy's ``rsq:decode.graph_replay``
-(``decode/step_graph.py``, one a replayed token step) inside it;
+(``decode/step_graph.py``, one a replayed token step) inside it, and the
+beam loop's ``rsq:decode.beam_select`` (the log-softmax, the dead-beam
+mask, the stable top-k over k x vocab and the lineage bookkeeping) and
+``rsq:decode.beam_reorder`` (the cache reorder, by whichever route: the
+in-place kernel, ``index_select`` or the deferred window and flush) inside
+it too;
 ``train/step.py``'s step ``rsq:train.step`` with ``rsq:train.forward``,
 ``.backward`` and ``.optimizer`` inside it.
 """

@@ -38,7 +38,10 @@ def _cross_inputs(seed, mode, layers=3, b=2, h=2, d=64, t_pad=1536):
         return q, k_s, kt, vt
     dd = d // 2 if mode == "int4" else d  # any byte is a valid packed pair
     shape = (layers, b, h, dd, t_pad)
-    kt, vt = (rng.integers(-128, 128, shape).astype(np.int8) for _ in range(2))
+    if np.prod(shape) > 2**28:  # a whole model's stack: int8 draws, not 8 GB of int64 ones
+        kt, vt = (rng.integers(-128, 128, shape, dtype=np.int8) for _ in range(2))
+    else:
+        kt, vt = (rng.integers(-128, 128, shape).astype(np.int8) for _ in range(2))
     if mode == "int8":
         kt, vt = (np.clip(x, -127, 127).astype(np.int8) for x in (kt, vt))
     return q, k_s, kt, vt
@@ -341,10 +344,15 @@ def test_decode_self_kernel_matches_plain(cuda, pos, rows, heads, t_pad, dtype):
         assert torch.equal(got, vn)
 
 
+# every mode and group (10: two launches of 8 and 2) over each stack, and
+# the large-v3 beam-5 cell's read: int4, 32 layers, 64 utterances x 20
+# heads, read at its last layer
+GROUPED_CASES = [(mode, group, *stack) for mode in ("int4", "int8", "fp") for group in (3, 5, 10)
+                 for stack in CROSS_STACKS] + [("int4", 5, 32, 64, 20, 31)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("layers,b,h,layer", CROSS_STACKS)
-@pytest.mark.parametrize("group", [3, 5, 10])  # 10: two launches of 8 and 2
-@pytest.mark.parametrize("mode", ["int4", "int8", "fp"])
+@pytest.mark.parametrize("mode,group,layers,b,h,layer", GROUPED_CASES)
 def test_grouped_decode_cross_kernel_matches_plain(cuda, mode, group, layers, b, h, layer):
     q, k_s, kt, vt = _cross_inputs(group, mode, layers, b, h)
     q = np.stack([q * (1.0 + 0.1 * j) for j in range(group)], axis=2)
@@ -367,7 +375,10 @@ def test_grouped_decode_cross_kernel_matches_plain(cuda, mode, group, layers, b,
 REORDER_CASES = [
     (live, src, 3, 40, 256) for live in (0, 9, 40)
     for src in ([3, 0, 0, 5, 2, 1], [5, 4, 3, 2, 1, 0], list(range(319, -1, -1)))
-] + [(51, [3, 3, 0, 19, 19, 7, 12, 12, 1, 5, 5, 18, 2, 2, 9, 14, 14, 4, 11, 6], 24, 56, 1024)]
+] + [(51, [3, 3, 0, 19, 19, 7, 12, 12, 1, 5, 5, 18, 2, 2, 9, 14, 14, 4, 11, 6], 24, 56, 1024)] + [
+    # the large-v3 beam-5 cell's last reorder: 64 utterances x 5 beams, 32
+    # layers, 148 of 160 positions live, n_state 1280
+    (148, [5 * (i // 5) + (i // 5 + (i % 5) ** 2) % 5 for i in range(320)], 32, 160, 1280)]
 
 
 @pytest.mark.cuda

@@ -33,7 +33,7 @@ from multi_gpu_check import (
 from robustsq_whisper_torch.decode.search import DecodeConfig, build_beam_decoder, strip_eot
 from robustsq_whisper_torch.decode.speculative import build_speculative_decoder
 from robustsq_whisper_torch.init import init_params
-from robustsq_whisper_torch.models import TSDecoder, TSEncoderConfig, WhisperDims
+from robustsq_whisper_torch.models import TSDecoder, TSEncoderConfig, WhisperDims, whisper_dims
 
 from .test_torch_cuda import cuda  # noqa: F401  (the fixture)
 
@@ -221,6 +221,9 @@ REMAINING_PATHS = {  # path: kernels it must launch
     "joint CTC beam 3 w=0.3": ("decode_self_attention",),
     "greedy with timestamps": GREEDY_KERNELS[1:],
     "speculative distilled draft": SPEC_KERNELS[:1],
+    # the large-v3 beam cell's loop at 2 layers: 1280 wide, 20 heads, the v3
+    # vocabulary, 1500 + 16 memory positions, the v3 prompt
+    "beam 5 at large-v3 widths": BEAM_KERNELS,
 }
 
 
@@ -280,6 +283,17 @@ def remaining_run(r, path, where):
         cfg = DecodeConfig(**base, with_timestamps=True, timestamp_begin=100,
                            max_initial_timestamp_index=4, quantize_cross_kv=True)
         return build_beam_decoder(copy.deepcopy(r["dec"]), cfg, where)(r["memory"], r["prompt"])
+    if path == "beam 5 at large-v3 widths":
+        if "v3" not in r:
+            g = np.random.default_rng(13)
+            rows = lambda *shape: torch.from_numpy(g.standard_normal(shape).astype(np.float32))
+            dims = whisper_dims("large-v3").replace(n_text_layer=2)
+            r["v3"] = (init_params(TSDecoder(dims, startofprev_token=50362, cross_kv_bits=4), 6).eval(),
+                       rows(2, 1516, 1280), rows(2, 16, 1280))
+        dec, memory, prompt = r["v3"]
+        cfg = DecodeConfig(max_new_tokens=16, eot=50257, init_tokens=(50258, 50259, 50360, 50364),
+                           beam_size=5, quantize_cross_kv=True, prefill_quantized=True)
+        return build_beam_decoder(copy.deepcopy(dec), cfg, where)(memory, prompt)
     cfg = DecodeConfig(**base, quantize_cross_kv=True, **SPEC)
     return build_speculative_decoder(copy.deepcopy(r["dec5"]), cfg, where, return_stats=True,
                                      draft=copy.deepcopy(r["draft"]))(r["memory"], r["prompt"])
@@ -289,12 +303,15 @@ def remaining_run(r, path, where):
 @pytest.mark.parametrize("path", list(REMAINING_PATHS))
 def test_small_remaining_path_agrees_with_cpu(cuda, remaining, path):
     """Zero-shot ``WhisperASR`` greedy and beam 3, joint CTC/attention beam
-    3, greedy with the timestamp rules and speculative decode with the
-    distilled draft: identical tokens and acceptance counters on the card
-    and the CPU, scores to 1e-3, the path's kernels launched; the
+    3, greedy with the timestamp rules, speculative decode with the
+    distilled draft and beam 5 at large-v3's decoder widths: identical
+    tokens and acceptance counters on the card and the CPU, scores to 1e-3
+    (5e-3 at large-v3's widths), the path's kernels launched; the
     speculative tokens are the greedy decoder's."""
     cpu, card, counts = on_both(lambda where: remaining_run(remaining, path, where), cuda)
-    assert_agree(cpu, card, 1e-3)
+    # at large-v3's widths f32 sums run over 1280- and 5120-long dots and
+    # 51,866 logits: its 16-token beam scores read 1.4e-3 apart on an H100
+    assert_agree(cpu, card, 5e-3 if path == "beam 5 at large-v3 widths" else 1e-3)
     assert_launched(counts, REMAINING_PATHS[path])
     if path == "speculative distilled draft":
         assert torch.equal(cpu[0], remaining["greedy"])

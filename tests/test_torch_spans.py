@@ -159,7 +159,9 @@ def test_decode_spans(serving, tmp_path, case):
     """Every decode span in the trace, the two waveform copies of the
     frontend inside it; one ``rsq:decode.step`` an iteration
     (a ``TSDecoder.step`` call each but the last); each stop check and each
-    ``TSDecoder.step`` call inside a step; the prefill inside the search;
+    ``TSDecoder.step`` call inside a step, and with beams a selection in
+every step and a cache reorder in every step that calls it; the prefill
+inside the search;
     the tokens those of a run without the profiler."""
     enc, dec = serving
     dcfg = DecodeConfig(max_new_tokens=6, eot=2, init_tokens=(1, 4), quantize_cross_kv=True,
@@ -200,6 +202,11 @@ def test_decode_spans(serving, tmp_path, case):
     assert frontend[1] + frontend[2] <= encode[1] <= search[1] <= consume[1]
     copies = _named(spans, "rsq:decode.frontend_copy")  # the speech's and the enrollments'
     assert len(copies) == 2 and _within_one(copies, [frontend])
+    if DECODE_CASES[case].get("beam_size", 1) > 1:  # one selection a step, a reorder a call
+        selects = _named(spans, "rsq:decode.beam_select")
+        reorders = _named(spans, "rsq:decode.beam_reorder")
+        assert len(selects) == len(steps) and _within_one(selects, steps)
+        assert len(reorders) == len(calls) and _within_one(reorders, steps)
 
 
 @pytest.mark.parametrize("mode", ["full", "lora"])
